@@ -1,0 +1,94 @@
+"""Build the port's CUDA sources at first use and load them with ctypes.
+
+Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
+`nvcc` into `qcnn_gpu_tpu_torch/build/lib<name>-<hash>.so`, where the hash
+covers the sources in `csrc/` and the flags: an edited source rebuilds,
+an unchanged one loads the library already built. Only the sources in
+the repository are used. A missing `nvcc` or a failed compile raises;
+there is no other path to the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Dict
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD = os.path.join(_PKG, "build")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-lineinfo",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+# name -> {"seconds": build time (0.0 when the library was already built),
+#          "log": nvcc's output, incl. -Xptxas -v register/smem report}
+build_info: Dict[str, dict] = {}
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """nvcc from $CUDA_HOME, $PATH or /usr/local/cuda; raises if absent."""
+    cands = [
+        os.path.join(os.environ[v], "bin", "nvcc")
+        for v in ("CUDA_HOME", "CUDA_PATH")
+        if os.environ.get(v)
+    ]
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME, $CUDA_PATH, $PATH and "
+        "/usr/local/cuda/bin): the CUDA kernels cannot be built"
+    )
+
+
+def _digest(src: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
+        with open(path, "rb") as fp:
+            h.update(os.path.basename(path).encode() + fp.read())
+    h.update(src.encode())
+    return h.hexdigest()[:16]
+
+
+def library(name: str) -> ctypes.CDLL:
+    """Compile (if needed) and load csrc/<name>.cu; cached per process."""
+    if name in _loaded:
+        return _loaded[name]
+    src = os.path.join(CSRC, f"{name}.cu")
+    if not os.path.isfile(src):
+        raise FileNotFoundError(f"CUDA source not found: {src}")
+    so = os.path.join(BUILD, f"lib{name}-{_digest(src)}.so")
+    if os.path.exists(so):
+        build_info[name] = {"seconds": 0.0, "log": "already built: " + so}
+    else:
+        nvcc = nvcc_path()
+        os.makedirs(BUILD, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+            capture_output=True, text=True,
+        )
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise RuntimeError(f"nvcc failed on {src} (rc={proc.returncode}):\n{log}")
+        os.replace(tmp, so)  # atomic: a concurrent process never loads a partial file
+        build_info[name] = {"seconds": seconds, "log": log}
+    lib = ctypes.CDLL(so)
+    _loaded[name] = lib
+    return lib

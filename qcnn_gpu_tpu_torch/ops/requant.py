@@ -1,0 +1,100 @@
+"""Exact integer requantization epilogues on torch tensors.
+
+Counterpart of `qcnn_gpu_tpu/ops/requant.py` (and of `_requant_fast`,
+`qcnn_gpu_tpu/ops/pallas_pipeline2.py:137`). The results equal the JAX
+int32 versions bit for bit wherever those do not wrap, which the model
+build guarantees (`normalize_mul_shift` + `check_blu_requant_i32_safe`).
+Products are formed in int64 so that a lane a select later discards can
+never wrap; each function returns the dtype of its accumulator input.
+
+`blu_q`/`mul`/`shift` are Python ints or integer tensors that broadcast
+against the accumulator (per-channel tables: a [C] vector for
+channels-last, [C, 1, 1] for NCHW).
+
+Two DIFFERENT rounding-bias placements, per the reference (do not unify):
+  * BLU layers: bias PRE-multiply, integer-divided by mul (mat.cu:262-303)
+  * final residual: bias POST-multiply, arithmetic (floor) shift
+    (cnn.cu:507-523)
+"""
+
+from __future__ import annotations
+
+import torch
+
+THRESHOLD = 127
+
+
+def normalize_mul_shift(mul: int, shift: int):
+    """Strip common powers of two from a (mul, shift) pair — an exact
+    identity for both rounding forms (see the JAX module's docstring for
+    the proof). Brings power-of-two-heavy solver pairs (INT4: mul=2^25,
+    shift=27) back into the int32 envelope without changing an output bit."""
+    mul, shift = int(mul), int(shift)
+    while mul >= 2 and mul % 2 == 0 and shift > 1:
+        mul //= 2
+        shift -= 1
+    return mul, shift
+
+
+def check_blu_requant_i32_safe(blu_q: int, mul: int, shift: int, name: str = "") -> None:
+    """Raise unless the kept branch's largest product (blu_q + bias) * mul
+    fits int32 — the envelope of the reference engine (mat.cu:262-303)."""
+    bias = (1 << (shift - 1)) // mul if mul else 0
+    prod = (int(blu_q) + bias) * int(mul)
+    if prod >= 1 << 31:
+        raise ValueError(
+            f"requant table {name or ''} (blu_q={blu_q}, mul={mul}, "
+            f"shift={shift}) needs {prod.bit_length()}-bit products; "
+            "outside the int32 engine envelope even after mul/shift "
+            "normalization — re-solve with a smaller shift"
+        )
+
+
+def _i64(v):
+    return v.to(torch.int64) if isinstance(v, torch.Tensor) else int(v)
+
+
+def blu_requant_i32(u: torch.Tensor, blu_q, mul, shift) -> torch.Tensor:
+    """u accumulator -> int8-valued tensor in [0, 127]:
+    u > blu_q -> 127; u < 0 -> 0; else ((u + (1<<(shift-1))//mul)*mul)>>shift."""
+    u64 = u.to(torch.int64)
+    blu_q, mul, shift = _i64(blu_q), _i64(mul), _i64(shift)
+    bias = (1 << (shift - 1)) // mul
+    mid = ((u64 + bias) * mul) >> shift
+    out = torch.where(u64 > blu_q, THRESHOLD, torch.where(u64 < 0, 0, mid))
+    return out.to(u.dtype)
+
+
+def final_residual_i32(u: torch.Tensor, mul: int, shift: int) -> torch.Tensor:
+    """res = (u*mul + (1<<(shift-1))) >> shift, arithmetic shift (floor)."""
+    res = (u.to(torch.int64) * int(mul) + (1 << (int(shift) - 1))) >> int(shift)
+    return res.to(u.dtype)
+
+
+def apply_residual_u8(x_uint8: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
+    """rec = clamp(x + res, 0, 255) -> uint8."""
+    rec = x_uint8.to(torch.int64) + res.to(torch.int64)
+    return rec.clamp(0, 255).to(torch.uint8)
+
+
+def mul_shift_i32(u: torch.Tensor, mul: int, shift: int) -> torch.Tensor:
+    """Unfused static requant with PRE-multiply bias and int8 wrap — the
+    `mul_shift` kernel (mat.cu:248-261). Returns int8-valued u.dtype."""
+    bias = (1 << (int(shift) - 1)) // int(mul)
+    out = ((u.to(torch.int64) + bias) * int(mul)) >> int(shift)
+    return out.to(torch.int8).to(u.dtype)
+
+
+def requant_fast(u_folded: torch.Tensor, blu_b, mul, shift) -> torch.Tensor:
+    """Folded BLU + requant on u' = u + bias_pre with B = blu_q + bias_pre:
+
+        min((clip(u', 0, B) * mul) >> shift, 127)
+
+    equal to `blu_requant_i32(u, ...)` for every table whose clip bound
+    maps to 127 (the solver's saturation window; proof at
+    pallas_pipeline2._requant_fast). This is the epilogue the fused kernel
+    runs after S1-S3."""
+    u = u_folded.to(torch.int64).clamp(min=0)
+    u = torch.minimum(u, torch.as_tensor(blu_b, dtype=torch.int64, device=u.device))
+    out = torch.clamp((u * _i64(mul)) >> _i64(shift), max=THRESHOLD)
+    return out.to(u_folded.dtype)

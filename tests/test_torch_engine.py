@@ -1,0 +1,107 @@
+"""The port's Engine and CLI `run` on the CPU, against the JAX Engine's
+output and metric files, and the committed golden PSNRs reproduced
+through the port. Restored frames: tolerance 0; PSNR: the goldens'
++-0.01 dB."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from qcnn_gpu_tpu.data import yuv
+from qcnn_gpu_tpu.data.golden import GOLDEN_DIR, QP_QUALITY, golden_clip, jpeg_anchor
+from qcnn_gpu_tpu.data.model_files import read_psnr_goldens, write_static_qfp_vect_c
+from qcnn_gpu_tpu.engine.runner import Engine as JEngine
+from qcnn_gpu_tpu.testing import synth_engine_params, synth_frames
+from qcnn_gpu_tpu_torch import cli
+from qcnn_gpu_tpu_torch.engine.runner import Engine
+
+
+@pytest.mark.parametrize("impl", ["auto", "kernel", "reference"])
+def test_engine_restore_matches_jax_engine(impl):
+    p = synth_engine_params(27)
+    x = synth_frames(5, 19, 31, seed=2)
+    eng = Engine(device="cpu", impl=impl, batch_frames=2)
+    eng.set_model(27, p)
+    jeng = JEngine(impl="int")
+    jeng.set_model(27, p)
+    want = jeng.restore(x, 27)
+    assert (eng.restore(x, 27) == want).all()
+    assert (eng.restore_stream(x, 27) == want).all()  # batches 2 + 2 + 1
+    assert list(eng._programs) == [(27, "cpu", "kernel" if impl == "auto" else impl)]
+
+
+def test_cli_run_matches_jax_cli(tmp_path, capsys):
+    """cli run on disk artifacts: same reconstruction and the same three
+    metric sinks as the JAX CLI."""
+    from qcnn_gpu_tpu import cli as jcli
+
+    ori = synth_frames(3, 22, 34, seed=4)
+    anchor = np.clip(ori.astype(int) + np.random.default_rng(0).integers(-4, 5, ori.shape),
+                     0, 255).astype(np.uint8)
+    yuv.write_y_as_420(str(tmp_path / "ori.yuv"), ori)
+    yuv.write_y_as_420(str(tmp_path / "anchor.yuv"), anchor)
+    write_static_qfp_vect_c(str(tmp_path / "m.data"), synth_engine_params(37))
+    args = ["run", "--ori", str(tmp_path / "ori.yuv"), "--anchor", str(tmp_path / "anchor.yuv"),
+            "--height", "22", "--width", "34", "--frames", "3",
+            "--model", str(tmp_path / "m.data"), "--qp", "37"]
+    for name, mod, extra in (("port", cli, ["--device", "cpu"]), ("jax", jcli, ["--impl", "int"])):
+        (tmp_path / name).mkdir()
+        rc = mod.main(args + extra + ["--out-dir", str(tmp_path / name),
+                                      "--recon", str(tmp_path / name / "recon.yuv")])
+        assert rc == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("before net: PSNR=") and lines[0] == lines[3]
+    assert lines[1].startswith("after quantized net: PSNR=") and lines[1] == lines[4]
+    assert lines[2].startswith("time: ") and "impl=kernel" in lines[2]
+    rec = {n: yuv.read_y(str(tmp_path / n / "recon.yuv"), 22, 34, 3) for n in ("port", "jax")}
+    assert (rec["port"] == rec["jax"]).all()
+    runs = {n: json.loads((tmp_path / n / "runs.jsonl").read_text()) for n in ("port", "jax")}
+    for key in ("sequence", "qp", "frames", "height", "width", "psnr_before", "psnr_after"):
+        assert runs["port"][key] == runs["jax"][key], key
+    assert runs["port"]["device"] == "cpu" and runs["port"]["impl"] == "kernel"
+    logs = {n: (tmp_path / n / "log.txt").read_text().splitlines() for n in ("port", "jax")}
+    assert [ln.split(":")[0] for ln in logs["port"]] == [ln.split(":")[0] for ln in logs["jax"]]
+    assert logs["port"][2:8] == logs["jax"][2:8]  # data .. after-PSNR lines
+    psnr = {n: read_psnr_goldens(str(tmp_path / n / "recon_psnr.data")) for n in ("port", "jax")}
+    assert (psnr["port"] == psnr["jax"]).all() and psnr["port"].shape == (1,)
+
+
+def test_cli_reports_missing_model(tmp_path, capsys):
+    rc = cli.main(["run", "--ori", "o.yuv", "--anchor", "a.yuv", "--height", "8",
+                   "--width", "8", "--model", str(tmp_path / "none.data"), "--qp", "37",
+                   "--device", "cpu", "--out-dir", str(tmp_path)])
+    assert rc == 1 and "cannot open model file" in capsys.readouterr().err
+
+
+def test_cuda_device_never_falls_back_to_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a GPU")
+    eng = Engine(device="cuda")
+    eng.set_model(37, synth_engine_params(37))
+    with pytest.raises((RuntimeError, AssertionError)):
+        eng.restore(np.zeros((1, 8, 8), np.uint8), 37)
+
+
+@pytest.fixture(scope="module")
+def eval_clip():
+    return golden_clip()[1]
+
+
+@pytest.mark.parametrize("model,fmt,golden,qp", [
+    ("model_q37.data", "vect_c", "psnr_golden.json", 37),
+    ("model_q22_int4.data", "pc", "psnr_golden_int4.json", 22),
+])
+def test_committed_models_reproduce_goldens(eval_clip, model, fmt, golden, qp):
+    """The committed trained models, decoding the committed JPEG anchor
+    bytes, reproduce the committed golden PSNRs through the port."""
+    with open(os.path.join(GOLDEN_DIR, golden)) as fp:
+        g = json.load(fp)["goldens"][str(qp)]
+    anchor = jpeg_anchor(eval_clip, QP_QUALITY[qp], tag="hopper_eval")
+    assert yuv.psnr(anchor, eval_clip) == pytest.approx(g["before"], abs=0.01)
+    eng = Engine(device="cpu")
+    eng.load_model(qp, os.path.join(GOLDEN_DIR, model), fmt=fmt)
+    after = yuv.psnr(eng.restore(anchor, qp), eval_clip)
+    assert after == pytest.approx(g["after"], abs=0.01)
