@@ -5,18 +5,38 @@
 
 Run from the root of a checkout on a machine with a CUDA GPU, `nvcc` and
 a CUDA build of PyTorch. It imports torch, numpy and the port only. It
-builds the fused-network kernel from qcnn_gpu_tpu_torch/csrc, holds it
-bit for bit against its plain PyTorch version, holds the plain version
-against the port's literal 6-conv reference graph (which the CPU tests
-hold bit-equal to the numpy oracle), drives the main path
-(`qcnn_gpu_tpu_torch.cli run` on 16 synthetic 1920x1080 frames with the
-committed QP37 model) and times kernel and plain version at 1080p. No
-phase catches an error: any failure exits non-zero. Without a GPU, or
-without the rest of the repository, it exits non-zero and prints no
-result.
+builds the kernels from the four sources in qcnn_gpu_tpu_torch/csrc (one
+nvcc each, all at once) and then:
+
+  1-5  the one-frame fused kernel (generation 3): bit for bit against its
+       plain version, the plain version against the port's literal 6-conv
+       reference graph (which the CPU tests hold bit-equal to the numpy
+       oracle), the main path (`qcnn_gpu_tpu_torch.cli run` on 16
+       synthetic 1920x1080 frames with the committed QP37 model) and kernel
+       and plain version timed at 1080p;
+  6    the frame-pair (generation 2) and literal-requant (generation 1)
+       kernels bit for bit against their plain versions on phase 2's cases,
+       odd batches included;
+  7    the literal kernel on the QP37 model with one BLU bound moved out of
+       the solver's saturation window, against its plain version and the
+       literal 6-conv graph; the folded-epilogue weights must refuse it;
+  8    `cli run --impl kernel2` on phase 4's frames: the pair kernel's path,
+       reconstruction equal to phase 4's;
+  9    the matrix-rate probe's seven chain cases bit for bit against their
+       plain version at grid 2, then its tool (`tools/mma_probe`) end to
+       end, which also prints the `mma.sync` issue ceiling (a measurement
+       with no TPU counterpart, so not in the kernels line);
+  10   generation 1's entry point (`tools/bench_kernels`), and v1/v2/v3
+       timed at 1080p batch 4 beside their plain versions.
+
+Every path (phases 4, 8, 9 and 10) runs with the launch counts set to 0
+just before it and read just after; a kernel of the path that was not
+launched fails the run. No phase catches an error: any failure exits
+non-zero. Without a GPU, or without the rest of the repository, it exits
+non-zero and prints no result.
 
 Output, one item per line: the GPU's name and power limit (nvidia-smi),
-the build time, every comparison, the main path's PSNR and time, the
+the build times, every comparison, the paths' PSNR and times, the
 timings; then a JSON line {"kernels": [...]} and, last, the JSON line
 {"ok": true, "device": {...}}.
 """
@@ -27,16 +47,23 @@ import dataclasses
 import json
 import math
 import os
-import subprocess
 import sys
 import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "assets", "golden")
-KERNEL_SOURCE = "qcnn_gpu_tpu_torch/csrc/qvrcnn_fused.cu"
-REPLACES = "qcnn_gpu_tpu/ops/pallas_pipeline3.py:319"  # _kernel3_body
+CSRC = "qcnn_gpu_tpu_torch/csrc"
+# kernel -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "qvrcnn_fused": (f"{CSRC}/qvrcnn_fused.cu", "qcnn_gpu_tpu/ops/pallas_pipeline3.py:319"),
+    "qvrcnn_pair": (f"{CSRC}/qvrcnn_pair.cu", "qcnn_gpu_tpu/ops/pallas_pipeline2.py:165"),
+    "qvrcnn_literal": (f"{CSRC}/qvrcnn_literal.cu", "qcnn_gpu_tpu/ops/pallas_pipeline.py:179"),
+    "mma_probe": (f"{CSRC}/mma_probe.cu", "scripts/mfu_probe.py:36"),
+}
 H, W = 1080, 1920
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8, data sheet
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 
 def fail(msg: str) -> None:
@@ -86,21 +113,6 @@ def read_y420(path: str, n: int, h: int, w: int):
     return raw.reshape(n, -1)[:, : h * w].reshape(n, h, w)
 
 
-def cuda_time_ms(fn, reps: int) -> float:
-    """Mean ms per call over `reps` calls, CUDA events around the run."""
-    import torch
-
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def main() -> int:
     import torch
 
@@ -109,33 +121,55 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
 
+    from concurrent.futures import ThreadPoolExecutor
+
     from qcnn_gpu_tpu_torch import cli
     from qcnn_gpu_tpu_torch.engine.runner import read_model
-    from qcnn_gpu_tpu_torch.models.qvrcnn import make_forward
+    from qcnn_gpu_tpu_torch.models.qvrcnn import _normalized_table, make_forward
+    from qcnn_gpu_tpu_torch.models.topology import MACS_PER_PIXEL
     from qcnn_gpu_tpu_torch.ops import build
     from qcnn_gpu_tpu_torch.ops.fused import (
-        KERNEL,
         FusedWeights,
         fused_forward,
         fused_forward_reference,
     )
+    from qcnn_gpu_tpu_torch.ops.literal import (
+        LiteralWeights,
+        literal_forward,
+        literal_residual,
+        literal_residual_reference,
+    )
+    from qcnn_gpu_tpu_torch.ops.pair import pair_forward, pair_forward_reference
+    from qcnn_gpu_tpu_torch.tools import bench_kernels, events_ms, mma_probe, smi
 
-    # ---- phase 1: the card, and the kernel build from the repo's sources
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    card = f"[{smi}]"
-    print(f"gpu: {smi}")
+    wrappers = {
+        "qvrcnn_fused": fused_forward, "qvrcnn_pair": pair_forward,
+        "qvrcnn_literal": literal_residual, "mma_probe": mma_probe.mma_probe,
+    }
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    # ---- phase 1: the card, and the kernels' build from the repo's sources
+    card = f"[{smi()}]"
+    print(f"gpu: {card[1:-1]}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    build.library(KERNEL)
-    info = build.build_info[KERNEL]
-    print(f"nvcc build of {KERNEL_SOURCE}: {info['seconds']:.2f} s "
-          f"(load incl. {time.perf_counter() - t0:.2f} s)")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    libraries = sorted({source.rsplit("/", 1)[1][:-3] for source, _ in KERNELS.values()})
+    with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, all at once
+        list(pool.map(build.library, libraries))
+    print(f"nvcc builds, in parallel: {time.perf_counter() - t0:.2f} s in all")
+    for name in libraries:
+        source = f"{CSRC}/{name}.cu"
+        info = build.build_info[name]
+        print(f"  {source}: {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print("    ptxas:", line.strip())
     dev = torch.device("cuda")
 
     # ---- phase 2: kernel == plain version, bit for bit, on the card
@@ -189,26 +223,37 @@ def main() -> int:
     ori = frames(n_frames, H, W, seed=0)
     noise = np.random.default_rng(1).integers(-6, 7, size=ori.shape)
     anchor = np.clip(ori.astype(np.int16) + noise, 0, 255).astype(np.uint8)
-    with tempfile.TemporaryDirectory() as tmp:
-        paths = {k: os.path.join(tmp, f"{k}.yuv") for k in ("ori", "anchor", "recon")}
-        write_yuv420(paths["ori"], ori)
-        write_yuv420(paths["anchor"], anchor)
-        fused_forward.launches = 0
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    yuv = {k: os.path.join(tmp, f"{k}.yuv") for k in ("ori", "anchor")}
+    write_yuv420(yuv["ori"], ori)
+    write_yuv420(yuv["anchor"], anchor)
+
+    def cli_run(impl: str):
+        """`cli run` on the 16 frames; -> (launch counts, recon, record)."""
+        out = os.path.join(tmp, impl)
+        recon_path = os.path.join(out, "recon.yuv")
+        zero_counts()
         rc = cli.main([
-            "run", "--ori", paths["ori"], "--anchor", paths["anchor"],
+            "run", "--ori", yuv["ori"], "--anchor", yuv["anchor"],
             "--height", str(H), "--width", str(W), "--frames", str(n_frames),
             "--model", os.path.join(GOLDEN, "model_q37.data"), "--qp", "37",
-            "--device", "cuda", "--impl", "auto",
-            "--out-dir", tmp, "--recon", paths["recon"],
+            "--device", "cuda", "--impl", impl, "--out-dir", out, "--recon", recon_path,
         ])
-        launches = fused_forward.launches
+        launched = counts()
         if rc != 0:
-            fail(f"cli run exited {rc}")
-        if launches <= 0:
-            fail("the main path launched the fused kernel no time")
-        recon = read_y420(paths["recon"], n_frames, H, W)
-        with open(os.path.join(tmp, "runs.jsonl")) as fp:
-            run = json.loads(fp.readline())
+            fail(f"cli run --impl {impl} exited {rc}")
+        with open(os.path.join(out, "runs.jsonl")) as fp:
+            rec = json.loads(fp.readline())
+        if not (math.isfinite(rec["psnr_before"]) and math.isfinite(rec["psnr_after"])):
+            fail(f"cli run --impl {impl}: PSNR not finite: {rec['psnr_before']}, "
+                 f"{rec['psnr_after']}")
+        return launched, read_y420(recon_path, n_frames, H, W), rec
+
+    launched, recon, run = cli_run("auto")
+    launches = {"qvrcnn_fused": launched["qvrcnn_fused"]}
+    if launches["qvrcnn_fused"] <= 0:
+        fail("the main path launched the fused kernel no time")
     want = np.concatenate([
         fused_forward_reference(torch.from_numpy(anchor[i:i + 4]).to(dev), fws["golden-QP37"])
         .cpu().numpy()
@@ -216,13 +261,12 @@ def main() -> int:
     ])
     if not (recon == want).all():
         fail("main-path reconstruction differs from the plain version")
-    if not (math.isfinite(run["psnr_before"]) and math.isfinite(run["psnr_after"])):
-        fail(f"main-path PSNR not finite: {run['psnr_before']}, {run['psnr_after']}")
     ms_frame = run["time_us"] / 1e3 / n_frames
-    print(f"main path: cli run QP37 {n_frames}x{H}x{W} on cuda: fused kernel launches={launches}, "
-          f"recon == plain version; PSNR before {run['psnr_before']:.4f} dB, after "
-          f"{run['psnr_after']:.4f} dB; {run['time_us']} us incl. H2D/D2H = "
-          f"{ms_frame:.3f} ms/frame ({n_frames / (run['time_us'] / 1e6):.1f} fps) {card}")
+    print(f"main path: cli run QP37 {n_frames}x{H}x{W} on cuda: fused kernel launches="
+          f"{launches['qvrcnn_fused']}, recon == plain version; PSNR before "
+          f"{run['psnr_before']:.4f} dB, after {run['psnr_after']:.4f} dB; {run['time_us']} us "
+          f"incl. H2D/D2H = {ms_frame:.3f} ms/frame "
+          f"({n_frames / (run['time_us'] / 1e6):.1f} fps, impl={run['impl']}) {card}")
 
     # ---- phase 5: kernel and plain ms/frame at 1080p
     fw37 = fws["golden-QP37"]
@@ -232,17 +276,149 @@ def main() -> int:
         for _ in range(3):
             fused_forward(xd, fw37)
         fused_forward_reference(xd, fw37)
-        k_ms = cuda_time_ms(lambda: fused_forward(xd, fw37), 20)
-        p_ms = cuda_time_ms(lambda: fused_forward_reference(xd, fw37), 2)
+        k_ms = events_ms(lambda: fused_forward(xd, fw37), 20)
+        p_ms = events_ms(lambda: fused_forward_reference(xd, fw37), 2)
         times[b] = (k_ms, p_ms)
         print(f"1080p batch {b}: kernel {k_ms / b:.4f} ms/frame, plain {p_ms / b:.4f} ms/frame "
               f"({k_ms:.4f} / {p_ms:.4f} ms per call) {card}")
 
-    k_ms, p_ms = times[4]  # the main path's batch (Engine batch_frames=4)
-    print(json.dumps({"kernels": [{
-        "name": KERNEL, "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
-        "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-    }]}))
+    # ---- phase 6: pair and literal kernels == their plain versions on
+    # phase 2's cases (frame bounds are the one-frame kernel's alone; the
+    # batches 1 and 3 give the pair kernel a lone last frame)
+    lws = {name: LiteralWeights.from_engine(p, dev) for name, p in models.items()}
+    max_errs = {"qvrcnn_fused": max_err, "qvrcnn_pair": 0, "qvrcnn_literal": 0}
+    for name, geo, kind, bounds in cases:
+        if bounds:
+            continue
+        if kind == "synth":
+            x = frames(*geo, seed=sum(geo))
+        else:
+            x = np.full(geo, 0 if kind == "zeros" else 255, np.uint8)
+        xd = torch.from_numpy(x).to(dev)
+        for kname, kernel, plain, wts in (
+            ("qvrcnn_pair", pair_forward, pair_forward_reference, fws),
+            ("qvrcnn_literal", literal_residual, literal_residual_reference, lws),
+        ):
+            got = kernel(xd, wts[name])
+            torch.cuda.synchronize()
+            want = plain(xd, wts[name])
+            if got.shape != want.shape or got.dtype != want.dtype:
+                fail(f"{kname} output {got.dtype} {tuple(got.shape)}, expected {want.dtype}")
+            err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+            max_errs[kname] = max(max_errs[kname], err)
+            print(f"{kname} vs plain {name} {geo} {kind}: max_abs_err={err}")
+            if err != 0:
+                fail(f"{kname} differs from its plain version: {name} {geo} {kind}")
+
+    # ---- phase 7: a table outside the saturation window: the literal
+    # kernel is exact there, the folded-epilogue weights refuse it
+    mul, shift = _normalized_table(p37)
+    blu = list(p37.blu_q)
+    blu[2] = int(blu[2]) + (1 << int(shift[2])) // int(mul[2]) + 1  # C2_2 one step up
+    p_out = dataclasses.replace(p37, blu_q=blu)
+    try:
+        FusedWeights.from_engine(p_out, dev)
+    except ValueError as e:
+        print(f"FusedWeights refuses the moved table: {e}")
+    else:
+        fail("FusedWeights accepted a table outside the saturation window")
+    lw_out = LiteralWeights.from_engine(p_out, dev)
+    for geo in ((2, 240, 416), (1, H, W)):
+        xd = torch.from_numpy(frames(*geo, seed=5)).to(dev)
+        got = literal_residual(xd, lw_out)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int32) - literal_residual_reference(xd, lw_out).to(torch.int32))
+                  .abs().max())
+        max_errs["qvrcnn_literal"] = max(max_errs["qvrcnn_literal"], err)
+        print(f"qvrcnn_literal vs plain, C2_2 bound moved out of the window {geo}: "
+              f"max_abs_err={err}")
+        if err != 0:
+            fail("literal kernel differs from its plain version outside the window")
+    x = frames(1, 240, 416, seed=12)
+    restored = literal_forward(torch.from_numpy(x).to(dev), lw_out).cpu()
+    if not torch.equal(restored, make_forward(p_out, device="cpu", merged=False)(torch.from_numpy(x))):
+        fail("literal kernel differs from the literal reference graph outside the window")
+    print("literal kernel (CUDA) vs literal reference graph (CPU), moved table (1, 240, 416): equal")
+
+    # ---- phase 8: the frame-pair kernel's path, cli run --impl kernel2
+    launched, recon2, run2 = cli_run("kernel2")
+    launches["qvrcnn_pair"] = launched["qvrcnn_pair"]
+    if launches["qvrcnn_pair"] <= 0:
+        fail("cli run --impl kernel2 launched the pair kernel no time")
+    if not (recon2 == recon).all():
+        fail("cli run --impl kernel2 reconstructs other frames than --impl auto")
+    print(f"cli run --impl kernel2: pair kernel launches={launches['qvrcnn_pair']}, recon == "
+          f"phase 4's; impl={run2['impl']}; {run2['time_us'] / 1e3 / n_frames:.3f} ms/frame incl. "
+          f"H2D/D2H {card}")
+    tmp_dir.cleanup()
+
+    # ---- phase 9: the matrix-rate probe, exact at grid 2, then its tool
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for pname, kind, k, n in mma_probe.CASES:
+        err = mma_probe.check_case(kind, k, n)
+        max_errs["mma_probe"] = max(max_errs.get("mma_probe", 0), err)
+        print(f"mma_probe {pname} (K={k}, N={n}) vs plain, grid 2: max_abs_err={err}")
+        if err != 0:
+            fail(f"mma_probe {pname} differs from its plain version")
+    zero_counts()
+    mma_probe.main()
+    launches["mma_probe"] = counts()["mma_probe"]
+    if launches["mma_probe"] <= 0:
+        fail("tools/mma_probe launched the probe kernel no time")
+
+    # ---- phase 10: generation 1's entry point, then v1/v2/v3 timed at
+    # 1080p batch 4 (the main path's batch) beside their plain versions
+    zero_counts()
+    bench_kernels.main([])
+    launches["qvrcnn_literal"] = counts()["qvrcnn_literal"]
+    if launches["qvrcnn_literal"] <= 0:
+        fail("tools/bench_kernels launched the literal kernel no time")
+    b = 4
+    xd = torch.from_numpy(frames(b, H, W, seed=b)).to(dev)
+    lw37 = lws["golden-QP37"]
+    px = b * H * W
+    measured = {"qvrcnn_fused": times[b]}
+    for kname, kernel, plain, wts, out_bytes in (
+        ("qvrcnn_pair", pair_forward, pair_forward_reference, fw37, 1),
+        ("qvrcnn_literal", literal_residual, literal_residual_reference, lw37, 2),
+    ):
+        kernel(xd, wts)
+        plain(xd, wts)
+        measured[kname] = (events_ms(lambda: kernel(xd, wts), 20),
+                           events_ms(lambda: plain(xd, wts), 2))
+    for kname, (k_ms, p_ms) in measured.items():
+        print(f"{kname} 1080p batch {b}: kernel {k_ms / b:.4f} ms/frame, plain "
+              f"{p_ms / b:.4f} ms/frame {card}")
+    a, w = mma_probe.probe_inputs("int8", 128, 128, grid=sms, device=dev)
+    w_op = mma_probe.kernel_operand(w)
+    mma_probe.mma_probe(a, w, w_op)
+    mma_probe.mma_probe_reference(a, w)
+    measured["mma_probe"] = (events_ms(lambda: mma_probe.mma_probe(a, w, w_op), 10),
+                             events_ms(lambda: mma_probe.mma_probe_reference(a, w), 2))
+    print(f"mma_probe int8_i32 grid {sms}: kernel {measured['mma_probe'][0]:.4f} ms, plain "
+          f"{measured['mma_probe'][1]:.4f} ms {card}")
+
+    # least time for the same work: operations over the int8 peak, bytes
+    # (each input read once, each output written once) over HBM's rate
+    net_ops = 2 * MACS_PER_PIXEL * px
+    bounds_in = {
+        "qvrcnn_fused": (net_ops, 2 * px), "qvrcnn_pair": (net_ops, 2 * px),
+        "qvrcnn_literal": (net_ops, 3 * px),
+        "mma_probe": (2 * mma_probe.macs(a, w), a.numel() + w.numel() + 4 * a.shape[0]
+                      * a.shape[1] * w.shape[2]),
+    }
+    rows = []
+    for kname, (source, replaces) in KERNELS.items():
+        ops, nbytes = bounds_in[kname]
+        ops_ms, bytes_ms = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        k_ms, p_ms = measured[kname]
+        rows.append({
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[kname], "max_abs_err": max_errs[kname], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
+        })
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -6,17 +6,22 @@ restored uint8 Y frames, PSNR and metric logs — on one NVIDIA Hopper GPU,
 bit-exact to the integer contract of `qcnn_gpu_tpu.models.oracle`.
 
 Layering (bottom -> top):
+  models/topology.py, models/engine_params.py   the network and its integer parameters
+  data/            static model files, YUV IO and PSNR, sequence manifests
   ops/requant.py   exact integer requant epilogues on tensors
   models/qvrcnn.py parameter containers + the float64-exact reference net
-  ops/fused.py     the fused-network kernel wrapper and its plain version
+  ops/fused.py     generation 3: one frame per block, folded epilogue
+  ops/pair.py      generation 2: frame pairs, folded epilogue
+  ops/literal.py   generation 1: literal BLU chain, int16 residual
   csrc/            hand-written CUDA C++ kernels (sm_90a)
-  ops/build.py     nvcc build of csrc/ into a ctypes-loaded library
+  ops/build.py     nvcc build of csrc/ into ctypes-loaded libraries
   engine/          Engine (program cache, batched restore) + metrics log
-  cli.py           `run` entry point
+  cli.py           `run` and `sweep` entry points
+  tools/           profile, bench_kernels, mma_probe (run on a CUDA GPU)
 
-The port imports torch and never jax. Framework-neutral modules of the
-JAX package (models.oracle, models.topology, data.*, quant, testing) are
-used in place.
+The port imports torch and nothing of jax or of the JAX package: what it
+needs of the JAX package's framework-neutral modules it keeps as its own
+copies (models/topology.py, models/engine_params.py, data/).
 """
 
 __version__ = "0.1.0"

@@ -3,10 +3,18 @@
     python -m qcnn_gpu_tpu_torch.cli run --ori ori.yuv --anchor anchor.yuv \
         --height 1080 --width 1920 --frames 16 --model model_q37.data \
         --qp 37 --device cuda
+    python -m qcnn_gpu_tpu_torch.cli sweep --data-root /data \
+        --model-pattern models/model_q%d.data --qps 22,27,32,37
 
-Counterpart of `qcnn_gpu_tpu/cli.py` `run` (cmd_run, cli.py:27-65): load
+Counterpart of `qcnn_gpu_tpu/cli.py` `run` (cmd_run, cli.py:27-65: load
 one static model, restore one sequence, print PSNR before/after and the
-time, append the metric logs, optionally write the reconstruction.
+time, append the metric logs, optionally write the reconstruction) and
+`sweep` (cmd_sweep, cli.py:68-82: the JCT-VC manifest or a JSON manifest
+over a list of QPs, one model per QP). `--impl` picks the program:
+kernel = generation 3 (the counterpart of the JAX `pallas`),
+kernel2 / kernel3 = the frame-pair / one-frame kernel, reference = the
+float64-exact reference net, auto = kernel. On `--device cpu` a kernel
+runs as its plain version.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from qcnn_gpu_tpu_torch.data.manifest import JCTVC_SEQUENCES, load_manifest
 from qcnn_gpu_tpu_torch.engine.runner import IMPLS, Engine
 
 
@@ -38,6 +47,25 @@ def cmd_run(args) -> int:
     return 0
 
 
+def cmd_sweep(args) -> int:
+    specs = load_manifest(args.manifest) if args.manifest else JCTVC_SEQUENCES
+    qps = [int(q) for q in args.qps.split(",")]
+    eng = Engine(device=args.device, impl=args.impl, out_dir=args.out_dir)
+    for qp in qps:
+        eng.load_model(qp, args.model_pattern % qp, fmt=args.model_format)
+    for r in eng.run_manifest(specs, args.data_root, qps=qps):
+        print(f"{r.sequence} QP{r.qp}: {r.psnr_before:.3f} -> {r.psnr_after:.3f} dB, "
+              f"{r.fps:.1f} fps")
+    return 0
+
+
+def _add_engine_flags(p) -> None:
+    p.add_argument("--model-format", default="vect_c", choices=["vect_c", "hwcn", "pc"])
+    p.add_argument("--impl", default="auto", choices=list(IMPLS))
+    p.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
+    p.add_argument("--out-dir", default=".")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="qcnn_gpu_tpu_torch", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -49,17 +77,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--width", type=int, required=True)
     p.add_argument("--frames", type=int, default=1)
     p.add_argument("--model", required=True)
-    p.add_argument("--model-format", default="vect_c", choices=["vect_c", "hwcn", "pc"])
     p.add_argument("--qp", type=int, required=True)
-    p.add_argument(
-        "--impl", default="auto", choices=list(IMPLS),
-        help="kernel = the fused CUDA kernel (its plain version on --device "
-        "cpu); reference = the float64-exact reference net; auto = kernel",
-    )
-    p.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
     p.add_argument("--recon", default=None)
-    p.add_argument("--out-dir", default=".")
+    _add_engine_flags(p)
     p.set_defaults(fn=cmd_run)
+
+    p = sub.add_parser("sweep", help="run the JCT-VC manifest (run_all analog)")
+    p.add_argument("--data-root", required=True)
+    p.add_argument("--model-pattern", required=True, help="e.g. models/q%%d.data")
+    p.add_argument("--qps", default="22,27,32,37")
+    p.add_argument("--manifest", default=None, help="JSON manifest (default: JCT-VC set)")
+    _add_engine_flags(p)
+    p.set_defaults(fn=cmd_sweep)
     return ap
 
 

@@ -1,6 +1,5 @@
 """Structured metrics log — the three sinks of the JAX engine's log
-(`qcnn_gpu_tpu/engine/metrics.py`), which cannot be imported without jax
-(its package `__init__` imports the JAX runner):
+(`qcnn_gpu_tpu/engine/metrics.py`):
 
   runs.jsonl        one JSON record per sequence run
   log.txt           the reference's text log (kernel.cu:108-111), same format
@@ -14,7 +13,7 @@ import json
 import os
 import time
 
-from qcnn_gpu_tpu.data.model_files import append_psnr_record
+from qcnn_gpu_tpu_torch.data.model_files import append_psnr_record
 
 
 @dataclasses.dataclass

@@ -1,13 +1,19 @@
 """The inference engine — program cache, batched restore, metrics.
 
 Counterpart of `qcnn_gpu_tpu/engine/runner.py:Engine` on one torch
-device. A program is the restorer for one (qp, device, impl):
+device. A program is the restorer for one (qp, device, program name):
 
-  impl="kernel"     the fused network through `ops/fused.fused_forward`
-                    (the CUDA kernel on a CUDA device, its plain version
-                    on the CPU)
+  impl="kernel"     generation 3, the counterpart of the JAX engine's
+                    "pallas" (no H100 table picks another generation yet)
+  impl="kernel3"    the one-frame fused kernel, `ops/fused.fused_forward`
+  impl="kernel2"    the frame-pair kernel, `ops/pair.pair_forward`
   impl="reference"  the float64-exact reference net (models/qvrcnn.py)
   impl="auto"       "kernel"
+
+A kernel runs as its CUDA kernel on a CUDA device and as its plain
+version on the CPU. The program name, and so the cache key and
+`RunRecord.impl`, is the generation that runs ("kernel2", "kernel3") or
+"reference".
 
 The device is explicit and nothing changes it: a CUDA device without
 CUDA raises, and a failed kernel build or launch raises. There is no
@@ -20,6 +26,7 @@ frame loop including host->device and device->host copies
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Callable, Dict, Optional, Tuple
@@ -27,23 +34,25 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from qcnn_gpu_tpu.data import yuv
-from qcnn_gpu_tpu.data.model_files import (
+from qcnn_gpu_tpu_torch.data import yuv
+from qcnn_gpu_tpu_torch.data.model_files import (
     read_static_qfp_hwcn,
     read_static_qfp_pc,
     read_static_qfp_vect_c,
 )
-from qcnn_gpu_tpu.models.oracle import EngineParams
 from qcnn_gpu_tpu_torch.engine.metrics import MetricsLog, RunRecord
+from qcnn_gpu_tpu_torch.models.engine_params import EngineParams
 from qcnn_gpu_tpu_torch.models.qvrcnn import make_forward
 from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, fused_forward
+from qcnn_gpu_tpu_torch.ops.pair import pair_forward
 
-IMPLS = ("auto", "kernel", "reference")
+IMPLS = ("auto", "kernel", "kernel2", "kernel3", "reference")
 _READERS = {
     "vect_c": read_static_qfp_vect_c,
     "hwcn": read_static_qfp_hwcn,
     "pc": read_static_qfp_pc,  # per-channel INT4 extension
 }
+_GENERATIONS = {"kernel2": pair_forward, "kernel3": fused_forward}
 
 
 def read_model(path: str, fmt: str = "vect_c") -> EngineParams:
@@ -82,17 +91,24 @@ class Engine:
         self._models[qp] = params
         self._programs = {k: v for k, v in self._programs.items() if k[0] != qp}
 
+    @property
+    def program_name(self) -> str:
+        """The program that runs: "reference", or the kernel generation,
+        "kernel2" or "kernel3"."""
+        return "kernel3" if self.impl == "kernel" else self.impl
+
     def _program(self, qp: int) -> Callable:
-        key = (qp, str(self.device), self.impl)
+        name = self.program_name
+        key = (qp, str(self.device), name)
         if key not in self._programs:
             if qp not in self._models:
                 raise KeyError(f"no model loaded for QP{qp}")
             p = self._models[qp]
-            if self.impl == "kernel":
-                fw = FusedWeights.from_engine(p, self.device)
-                run = lambda x: fused_forward(x, fw)  # noqa: E731
-            else:
+            if name == "reference":
                 run = make_forward(p, device=self.device)
+            else:
+                fw = FusedWeights.from_engine(p, self.device)
+                run = functools.partial(_GENERATIONS[name], fw=fw)
             self._programs[key] = run
         return self._programs[key]
 
@@ -152,7 +168,7 @@ class Engine:
             psnr_before=yuv.psnr(anchor, ori),
             psnr_after=yuv.psnr(recon, ori),
             time_us=time_us,
-            impl=self.impl,
+            impl=self.program_name,
             device=str(self.device),
         )
         self.metrics.append(rec)

@@ -31,8 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from qcnn_gpu_tpu.models.oracle import EngineParams
-from qcnn_gpu_tpu.models.topology import QVRCNN_LAYERS
+from qcnn_gpu_tpu_torch.models.engine_params import EngineParams
+from qcnn_gpu_tpu_torch.models.topology import QVRCNN_LAYERS
 from qcnn_gpu_tpu_torch.ops.requant import (
     apply_residual_u8,
     blu_requant_i32,

@@ -92,3 +92,30 @@ def library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(so)
     _loaded[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C function `symbol` of csrc/<name>.cu with its argument types
+    set and an int (cudaError_t) result."""
+    lib = library(name)
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        lib.qvrcnn_error_string.argtypes = [ctypes.c_int]
+        lib.qvrcnn_error_string.restype = ctypes.c_char_p
+    return fn
+
+
+def check(name: str, err: int) -> None:
+    """Raise RuntimeError for a nonzero cudaError_t from csrc/<name>.cu."""
+    if err != 0:
+        msg = library(name).qvrcnn_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+def stream_of(t) -> int:
+    """The current CUDA stream of tensor `t`'s device, as an int."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from qcnn_gpu_tpu.models.oracle import EngineParams
+from qcnn_gpu_tpu_torch.models.engine_params import EngineParams
 from qcnn_gpu_tpu_torch.models.qvrcnn import MergedParams, conv_exact
 from qcnn_gpu_tpu_torch.ops import build
 from qcnn_gpu_tpu_torch.ops.requant import (
@@ -130,7 +130,9 @@ def _bounds(h: int, w: int, row_lo, row_hi, col_lo, col_hi):
     return int(row_lo), int(row_hi), int(col_lo), int(col_hi)
 
 
-def _check(x_u8: torch.Tensor, fw: FusedWeights) -> None:
+def check_frames(x_u8: torch.Tensor, weights_device: torch.device) -> None:
+    """Raise unless x_u8 is a contiguous uint8 [B, H, W] tensor on the
+    weights' device."""
     if not isinstance(x_u8, torch.Tensor):
         raise TypeError(f"expected a torch.Tensor, got {type(x_u8).__name__}")
     if x_u8.dtype != torch.uint8 or x_u8.dim() != 3:
@@ -139,10 +141,8 @@ def _check(x_u8: torch.Tensor, fw: FusedWeights) -> None:
         )
     if not x_u8.is_contiguous():
         raise ValueError("frames must be contiguous")
-    if x_u8.device != fw.vec.device:
-        raise ValueError(
-            f"frames on {x_u8.device} but weights on {fw.vec.device}"
-        )
+    if x_u8.device != weights_device:
+        raise ValueError(f"frames on {x_u8.device} but weights on {weights_device}")
 
 
 def fused_forward_reference(
@@ -154,7 +154,7 @@ def fused_forward_reference(
     col_hi: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: uint8 [B, H, W] -> uint8."""
-    _check(x_u8, fw)
+    check_frames(x_u8, fw.vec.device)
     b, h, w = x_u8.shape
     row_lo, row_hi, col_lo, col_hi = _bounds(h, w, row_lo, row_hi, col_lo, col_hi)
     rows = torch.arange(h, device=x_u8.device)
@@ -177,15 +177,7 @@ def fused_forward_reference(
     return apply_residual_u8(x_u8, res)
 
 
-def _launcher():
-    lib = build.library(KERNEL)
-    fn = lib.qvrcnn_fused_forward
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.qvrcnn_error_string.argtypes = [ctypes.c_int]
-        lib.qvrcnn_error_string.restype = ctypes.c_char_p
-    return lib, fn
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 def fused_forward(
@@ -201,7 +193,7 @@ def fused_forward(
     A CUDA tensor goes through the CUDA kernel (one launch on the current
     stream; counted in `fused_forward.launches`) or raises. A CPU tensor
     goes through `fused_forward_reference`, the kernel's plain version."""
-    _check(x_u8, fw)
+    check_frames(x_u8, fw.vec.device)
     if x_u8.device.type == "cpu":
         return fused_forward_reference(x_u8, fw, row_lo, row_hi, col_lo, col_hi)
     if x_u8.device.type != "cuda":
@@ -213,20 +205,15 @@ def fused_forward(
     out = torch.empty_like(x_u8)
     if x_u8.numel() == 0:
         return out
-    lib, fn = _launcher()
+    fn = build.function(KERNEL, "qvrcnn_fused_forward", _ARGTYPES)
     with torch.cuda.device(x_u8.device):
-        stream = torch.cuda.current_stream(x_u8.device).cuda_stream
         err = fn(
             x_u8.data_ptr(), out.data_ptr(),
             *(t.data_ptr() for t in fw.frag), fw.vec.data_ptr(),
             b, h, w, row_lo, row_hi, col_lo, col_hi,
-            fw.b4, fw.mul4, fw.shift4, stream,
+            fw.b4, fw.mul4, fw.shift4, build.stream_of(x_u8),
         )
-    if err != 0:
-        raise RuntimeError(
-            f"{KERNEL} launch failed: CUDA error {err} "
-            f"({lib.qvrcnn_error_string(err).decode()})"
-        )
+    build.check(KERNEL, err)
     fused_forward.launches += 1
     return out
 

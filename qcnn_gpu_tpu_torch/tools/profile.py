@@ -24,7 +24,6 @@ Needs a CUDA device and raises without one.
 from __future__ import annotations
 
 import os
-import subprocess
 import time
 
 import numpy as np
@@ -32,6 +31,7 @@ import torch
 
 from qcnn_gpu_tpu_torch.engine.runner import Engine, read_model
 from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, fused_forward
+from qcnn_gpu_tpu_torch.tools import events_ms, smi
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 MODEL = os.path.join(_REPO, "assets", "golden", "model_q37.data")
@@ -39,27 +39,8 @@ QP = 37
 H, W, N, BATCH, REPS, SEED = 1080, 1920, 16, 4, 5, 0
 
 
-def _smi(fields: str) -> str:
-    return subprocess.run(
-        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
 def _frames(n: int, h: int, w: int, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, 256, size=(n, h, w), dtype=np.uint8)
-
-
-def _events_ms(fn, reps: int) -> float:
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def split(frames: np.ndarray, fw: FusedWeights, batch: int, dev) -> dict:
@@ -91,7 +72,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("this profile needs a CUDA GPU")
     dev = torch.device("cuda")
-    print(f"gpu: {_smi('name,power.limit,clocks.sm')}")
+    print(f"gpu: {smi('name,power.limit,clocks.sm')}")
 
     params = read_model(MODEL)
     eng = Engine(device=dev, impl="kernel", batch_frames=BATCH)
@@ -149,9 +130,9 @@ def main() -> int:
         xd = torch.from_numpy(_frames(gn, gh, gw, SEED + 1)).to(dev)
         for _ in range(3):
             fused_forward(xd, fw)
-        ms = _events_ms(lambda: fused_forward(xd, fw), 20)
+        ms = events_ms(lambda: fused_forward(xd, fw), 20)
         print(f"kernel {gn}x{gh}x{gw}: {ms / gn:.4f} ms/frame")
-    print(f"gpu after: {_smi('clocks.sm,power.draw')}")
+    print(f"gpu after: {smi('clocks.sm,power.draw')}")
     return 0
 
 

@@ -17,6 +17,7 @@ import torch
 from qcnn_gpu_tpu.models import oracle as O
 from qcnn_gpu_tpu.testing import synth_engine_params, synth_frames
 from qcnn_gpu_tpu_torch.models import qvrcnn as Q
+from qcnn_gpu_tpu_torch.models.engine_params import EngineParams
 from qcnn_gpu_tpu_torch.ops import fused as FU
 from qcnn_gpu_tpu_torch.ops.requant import apply_residual_u8
 
@@ -27,8 +28,12 @@ def build_pallas_forward3(p, **kw):
     return build(p, th=8, interpret=True, **kw)
 
 
+def _fw(p, device="cpu"):
+    return FU.FusedWeights.from_engine(EngineParams.from_arrays(p), device)
+
+
 def _plain(p, x, *bounds):
-    fw = FU.FusedWeights.from_engine(p)
+    fw = _fw(p)
     return FU.fused_forward_reference(torch.from_numpy(x), fw, *bounds).numpy()
 
 
@@ -83,13 +88,12 @@ def test_bounds_match_masked_reference_core():
     cv = (torch.arange(33) >= 1) & (torch.arange(33) < 30)
     xt = torch.from_numpy(x)
     res = Q.residual_blu_merged(xt[..., None].to(torch.int64) - 128,
-                                Q.MergedParams.from_engine(p), rv, cv)
+                                Q.MergedParams.from_engine(EngineParams.from_arrays(p)), rv, cv)
     assert (_plain(p, x, 4, 17, 1, 30) == apply_residual_u8(xt, res).numpy()).all()
 
 
 def test_cpu_tensor_takes_the_plain_version():
-    p = synth_engine_params(37)
-    fw = FU.FusedWeights.from_engine(p)
+    fw = _fw(synth_engine_params(37))
     x = torch.from_numpy(synth_frames(1, 19, 23, seed=3))
     before = FU.fused_forward.launches
     assert (FU.fused_forward(x, fw) == FU.fused_forward_reference(x, fw)).all()
@@ -97,7 +101,7 @@ def test_cpu_tensor_takes_the_plain_version():
 
 
 def test_wrapper_checks_inputs():
-    fw = FU.FusedWeights.from_engine(synth_engine_params(37))
+    fw = _fw(synth_engine_params(37))
     x = torch.zeros((1, 8, 8), dtype=torch.uint8)
     with pytest.raises(ValueError, match="uint8 frames"):
         FU.fused_forward(x.to(torch.int32), fw)
@@ -113,7 +117,7 @@ def test_wrapper_checks_inputs():
 def test_cuda_kernel_matches_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    fw = FU.FusedWeights.from_engine(synth_engine_params(37), "cuda")
+    fw = _fw(synth_engine_params(37), "cuda")
     for shape, bounds in (((1, 37, 53), ()), ((2, 13, 245), ()), ((2, 40, 50), (3, 33, 5, 41))):
         x = torch.from_numpy(synth_frames(*shape, seed=7)).cuda()
         got = FU.fused_forward(x, fw, *bounds)

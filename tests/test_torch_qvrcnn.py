@@ -15,12 +15,13 @@ from qcnn_gpu_tpu.models import qvrcnn as JQ
 from qcnn_gpu_tpu.quant.solver import BLU_INIT, solve_network_per_channel, stepw_per_channel
 from qcnn_gpu_tpu.testing import synth_engine_params, synth_frames
 from qcnn_gpu_tpu_torch.models import qvrcnn as Q
+from qcnn_gpu_tpu_torch.models.engine_params import EngineParams
 
 GEOS = [(1, 37, 53), (2, 13, 245), (3, 18, 250)]
 
 
 def _port(p, x, merged=True):
-    return Q.make_forward(p, merged=merged)(torch.from_numpy(x)).numpy()
+    return Q.make_forward(EngineParams.from_arrays(p), merged=merged)(torch.from_numpy(x)).numpy()
 
 
 @pytest.mark.parametrize("merged", [True, False])
@@ -72,8 +73,9 @@ def test_row_col_valid_match_jax():
         jnp.asarray(xp), JQ.MergedParams.from_engine(p), "int",
         row_valid=jnp.asarray(rv), col_valid=jnp.asarray(cv),
     ))
+    pp = EngineParams.from_arrays(p)
     got = Q.residual_blu_merged(
-        torch.from_numpy(xp), Q.MergedParams.from_engine(p),
+        torch.from_numpy(xp), Q.MergedParams.from_engine(pp),
         row_valid=torch.from_numpy(rv), col_valid=torch.from_numpy(cv),
     )
     assert (got.numpy() == want).all()
@@ -81,7 +83,7 @@ def test_row_col_valid_match_jax():
         jnp.asarray(xp), JQ.ModelParams.from_engine(p), "int", row_valid=jnp.asarray(rv),
     ))
     got_rows = Q.residual_blu(
-        torch.from_numpy(xp), Q.ModelParams.from_engine(p), row_valid=torch.from_numpy(rv),
+        torch.from_numpy(xp), Q.ModelParams.from_engine(pp), row_valid=torch.from_numpy(rv),
     )
     assert (got_rows.numpy() == want_rows).all()
 
@@ -89,7 +91,7 @@ def test_row_col_valid_match_jax():
 def test_module_keeps_parameters_in_buffers():
     """Parameters are module buffers, the very tensors of the container
     the forward reads."""
-    m = Q.QVRCNN(synth_engine_params(37))
+    m = Q.QVRCNN(EngineParams.from_arrays(synth_engine_params(37)))
     bufs = dict(m.named_buffers())
     assert {"w_i8_0", "b_i32_3", "blu_q_2", "mul_0"} <= set(bufs)
     mp = m.params
