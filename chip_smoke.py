@@ -8,12 +8,17 @@ a CUDA build of PyTorch. It imports torch, numpy and the port only. It
 builds the kernels from the four sources in qcnn_gpu_tpu_torch/csrc (one
 nvcc each, all at once) and then:
 
-  1-5  the one-frame fused kernel (generation 3): bit for bit against its
-       plain version, the plain version against the port's literal 6-conv
-       reference graph (which the CPU tests hold bit-equal to the numpy
-       oracle), the main path (`qcnn_gpu_tpu_torch.cli run` on 16
-       synthetic 1920x1080 frames with the committed QP37 model) and kernel
-       and plain version timed at 1080p;
+  1-5  the fused kernel (generation 3: split branch GEMMs on `wgmma`,
+       weights resident in shared memory, a persistent grid of 24x40
+       tiles): its `ptxas` report (registers, spills; none allowed) and
+       shared memory, bit for bit against its plain version (phase 2's
+       cases: four models, 37x53 to 1080p, batch 8 at 1080p, frame bounds,
+       and a tile count that is not a multiple of the grid), the plain
+       version against the port's literal 6-conv reference graph (which
+       the CPU tests hold bit-equal to the numpy oracle), the main path
+       (`qcnn_gpu_tpu_torch.cli run` on 16 synthetic 1920x1080 frames with
+       the committed QP37 model) and kernel and plain version timed at
+       1080p;
   6    the frame-pair (generation 2) and literal-requant (generation 1)
        kernels bit for bit against their plain versions on phase 2's cases,
        odd batches included;
@@ -27,7 +32,9 @@ nvcc each, all at once) and then:
        end, which also prints the `mma.sync` issue ceiling (a measurement
        with no TPU counterpart, so not in the kernels line);
   10   generation 1's entry point (`tools/bench_kernels`), and v1/v2/v3
-       timed at 1080p batch 4 beside their plain versions.
+       timed at 1080p batch 4 beside their plain versions, with v3's time
+       as a fraction of v2's (the design before generation 3's, in the
+       same call).
 
 Every path (phases 4, 8, 9 and 10) runs with the launch counts set to 0
 just before it and read just after; a kernel of the path that was not
@@ -47,6 +54,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import sys
 import tempfile
 import time
@@ -62,7 +70,6 @@ KERNELS = {
     "mma_probe": (f"{CSRC}/mma_probe.cu", "scripts/mfu_probe.py:36"),
 }
 H, W = 1080, 1920
-PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8, data sheet
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 
@@ -129,6 +136,9 @@ def main() -> int:
     from qcnn_gpu_tpu_torch.models.topology import MACS_PER_PIXEL
     from qcnn_gpu_tpu_torch.ops import build
     from qcnn_gpu_tpu_torch.ops.fused import (
+        KERNEL,
+        TILE_H,
+        TILE_W,
         FusedWeights,
         fused_forward,
         fused_forward_reference,
@@ -140,7 +150,7 @@ def main() -> int:
         literal_residual_reference,
     )
     from qcnn_gpu_tpu_torch.ops.pair import pair_forward, pair_forward_reference
-    from qcnn_gpu_tpu_torch.tools import bench_kernels, events_ms, mma_probe, smi
+    from qcnn_gpu_tpu_torch.tools import PEAK_INT8_OPS, bench_kernels, events_ms, mma_probe, smi
 
     wrappers = {
         "qvrcnn_fused": fused_forward, "qvrcnn_pair": pair_forward,
@@ -170,6 +180,13 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print("    ptxas:", line.strip())
+    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", build.build_info[KERNEL]["log"])
+    if not spills or any(int(n) for n in spills):
+        fail(f"ptxas reports spills (or no report) for {KERNEL}: {spills}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    smem = build.library(KERNEL).qvrcnn_smem_bytes()
+    print(f"{KERNEL}: 0 bytes spilled, {smem} bytes of dynamic shared memory per block, "
+          f"{TILE_H}x{TILE_W} tiles, grid = min(tiles, {sms} SMs) blocks of 512 threads")
     dev = torch.device("cuda")
 
     # ---- phase 2: kernel == plain version, bit for bit, on the card
@@ -188,8 +205,17 @@ def main() -> int:
         cases += [(name, (2, 240, 416), "zeros", ()), (name, (2, 240, 416), "255", ())]
         cases.append((name, (2, 240, 416), "synth", (7, 229, 3, 401)))
     fws = {name: FusedWeights.from_engine(p, dev) for name, p in models.items()}
+    # generation 3 alone: a batch of 8 at 1080p, and a frame of 2 x (sms // 2
+    # + 1) tiles, a tile count that is no multiple of the grid (min(tiles, sms))
+    odd = (1, TILE_H + 13, TILE_W * (sms // 2) + 13)
+    tiles = -(-odd[1] // TILE_H) * -(-odd[2] // TILE_W)
+    if tiles <= sms or tiles % sms == 0:
+        fail(f"{odd}: {tiles} tiles on {sms} blocks is not the case this should test")
+    print(f"{odd}: {tiles} tiles on a grid of {sms} blocks")
     max_err = 0
-    for name, geo, kind, bounds in cases:
+    for name, geo, kind, bounds in cases + [
+        ("golden-QP37", (8, H, W), "synth", ()), ("golden-QP22-int4-pc", odd, "synth", ()),
+    ]:
         if kind == "synth":
             x = frames(*geo, seed=sum(geo))
         else:
@@ -353,7 +379,6 @@ def main() -> int:
     tmp_dir.cleanup()
 
     # ---- phase 9: the matrix-rate probe, exact at grid 2, then its tool
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for pname, kind, k, n in mma_probe.CASES:
         err = mma_probe.check_case(kind, k, n)
         max_errs["mma_probe"] = max(max_errs.get("mma_probe", 0), err)
@@ -377,15 +402,24 @@ def main() -> int:
     xd = torch.from_numpy(frames(b, H, W, seed=b)).to(dev)
     lw37 = lws["golden-QP37"]
     px = b * H * W
-    measured = {"qvrcnn_fused": times[b]}
-    for kname, kernel, plain, wts, out_bytes in (
-        ("qvrcnn_pair", pair_forward, pair_forward_reference, fw37, 1),
-        ("qvrcnn_literal", literal_residual, literal_residual_reference, lw37, 2),
-    ):
-        kernel(xd, wts)
-        plain(xd, wts)
-        measured[kname] = (events_ms(lambda: kernel(xd, wts), 20),
-                           events_ms(lambda: plain(xd, wts), 2))
+    # v3 and v2 (the design before generation 3's) in turns v3 v2 v2 v3
+    turns = {"qvrcnn_fused": [], "qvrcnn_pair": []}
+    for kname in ("qvrcnn_fused", "qvrcnn_pair", "qvrcnn_pair", "qvrcnn_fused"):
+        kernel = fused_forward if kname == "qvrcnn_fused" else pair_forward
+        kernel(xd, fw37)
+        turns[kname].append(events_ms(lambda: kernel(xd, fw37), 20))
+    v3_ms, v2_ms = (sum(turns[k]) / 2 for k in ("qvrcnn_fused", "qvrcnn_pair"))
+    print(f"v3 / v2 at 1080p batch {b}, in turns v3 v2 v2 v3: {v3_ms / b:.4f} / {v2_ms / b:.4f} "
+          f"ms/frame = {v3_ms / v2_ms:.4f} {card}")
+    pair_forward_reference(xd, fw37)
+    measured = {
+        "qvrcnn_fused": (v3_ms, times[b][1]),
+        "qvrcnn_pair": (v2_ms, events_ms(lambda: pair_forward_reference(xd, fw37), 2)),
+    }
+    literal_residual(xd, lw37)
+    literal_residual_reference(xd, lw37)
+    measured["qvrcnn_literal"] = (events_ms(lambda: literal_residual(xd, lw37), 20),
+                                  events_ms(lambda: literal_residual_reference(xd, lw37), 2))
     for kname, (k_ms, p_ms) in measured.items():
         print(f"{kname} 1080p batch {b}: kernel {k_ms / b:.4f} ms/frame, plain "
               f"{p_ms / b:.4f} ms/frame {card}")

@@ -1,130 +1,499 @@
-// Fused whole-network QVRCNN INT8 restore kernel for Hopper (sm_90a).
+// Fused whole-network QVRCNN INT8 restore kernel for Hopper (sm_90a),
+// generation 3.
 //
 // Replaces the Pallas TPU kernel `_make_kernel3` / `_kernel3_body`
 // (qcnn_gpu_tpu/ops/pallas_pipeline3.py:271, :319), built by
 // `build_pallas_forward3`. It computes what that kernel computes — the
-// integer contract of qcnn_gpu_tpu/models/oracle.py:8-31 on the
-// branch-merged network, bit for bit:
+// integer contract of qcnn_gpu_tpu/models/oracle.py:8-31, bit for bit:
 //
 //   x' = x_u8 - 128                       (0 outside the frame bounds)
-//   S1 5x5  1->64 | S2 5x5 64->48 | S3 3x3 48->48   each: int8 x int8 ->
+//   S1 C1 5x5 1->64 | S2 Conc1 = C2_1 3x3 64->32 ++ C2_2 5x5 64->16 |
+//   S3 Conc2 = C3_1 3x3 48->16 ++ C3_2 1x1 48->32   each: int8 x int8 ->
 //      int32, folded BLU requant min((clip(u + b', 0, B) * mul) >> shift,
 //      127), then every position outside the frame bounds set to 0
 //      (per-layer SAME padding at the frame edge)
-//   S4 3x3 48->1, res = (u * mul4 + 2^(shift4-1)) >> shift4 (floor),
+//   S4 C4 3x3 48->1, res = (u * mul4 + 2^(shift4-1)) >> shift4 (floor),
 //   out = clamp(x_u8 + res, 0, 255)
 //
-// It does not copy the TPU kernel's layout: no width-2 pixel packing, no
-// six-plane S1 operand, no mask atlas, no band split — those exist to feed
-// a 128x128 MXU out of VMEM.
+// What bounds it on the H100: tensor-core work. The network is 54,512
+// useful MACs per pixel against 1-2 bytes of device memory, so the int8
+// peak (1,979 TOP/s) is the bound, 0.114 ms per 1080p frame. In practice
+// the count of `wgmma` instructions bounds it more than their MACs: on an
+// H100 SXM (700 W) an m64n16k32 with both operands in shared memory
+// takes ~20 cycles per SM, an m64n64k32 ~32 (the int8 peak), i.e. a
+// small-N chunk costs about its 2 KB A-operand read (tools/wgmma_rate).
+// This kernel issues 1,362 per 24x40 tile (~31k cycles, about 0.27 ms per
+// 1080p frame at that rate), and its integer epilogue
+// requantizes 218k values per tile beside them. The design answers the
+// four costs that held the first Hopper design (16x16 tiles, merged
+// branches, `mma.sync`, weights from L2) at 18x its bound:
 //
-// Design. One thread block (8 warps) per (frame, 16x16 output tile). The
-// block reads the uint8 frame directly with a 6-px halo (the network's
-// receptive radius) and keeps every activation in shared memory as int8:
-// S1 on 24x24x64, S2 on 20x20x48, S3 on 18x18x48 (84 KB in all, two
-// blocks per SM). Each stage is an implicit GEMM on the tensor cores with
-// `mma.sync.m16n8k32.s8.s8.s32`: M = the stage's output positions, N = its
-// output channels, K = taps x input channels. A fragments are 32-bit
-// shared-memory loads of 4 consecutive channels (S1 gathers its 4 taps
-// byte by byte); B fragments come pre-arranged in fragment order from
-// device memory (ops/fused.py packs them), one 8-byte load per lane. The
-// stage GEMMs live in qvrcnn_stage.cuh, shared with the pair and literal
-// kernels.
+// - Split branches: no zero taps. S2's 9 centre taps carry C2_1 and
+//   C2_2 together (N = 48), its 16 outer taps C2_2 alone (N = 16); S3's
+//   centre tap carries C3_1 and C3_2 (N = 48), its 8 others C3_1 (N = 16).
+//   56,320 MACs issued per computed position (1.03x the useful 54,512:
+//   K and N padding of S1, S3 and S4).
+// - Larger tiles: 24x40 outputs per tile (24 divides 1080, 40 divides
+//   1920). S2-S4 compute on their input region's row pitch, S1 on its
+//   own, so the halo, the wrapped columns and the last blocks' rows cost
+//   1.37x the output area, weighted by MACs (1.52x at 16x16).
+// - `wgmma` on both operands from shared memory, one warpgroup per
+//   64-position block, all chunks of a block issued back to back. The
+//   A operand needs no im2col: activations are channel-block-major
+//   ([16-channel plane][position][16 bytes]), so the 8 x 16-byte core
+//   matrices of 64 consecutive positions are contiguous, and tap
+//   (dy, dx) is the same descriptor moved by dy * pitch + dx positions.
+//   S1 (one input channel) reads an expanded window whose 16 bytes per
+//   position are 15 taps (3 rows x 5 columns): one k32 chunk, halves 3
+//   rows apart. S4 (one output channel) runs tap-major: each S3
+//   position meets all 9 taps at once (N = 16) and each output sums its
+//   9 shares, 36 `wgmma` per tile where one per tap would take 224.
+// - Weights resident in shared memory: the 56,320-byte image
+//   (ops/fused.split_operand) is copied once per block with cp.async; a
+//   persistent grid (one 512-thread block per SM, 218,976 bytes of shared
+//   memory) walks the (frame, row tile, column tile) list, and the next
+//   tile's window is loaded into registers while the current one computes.
 //
-// What bounds it on the H100. The network is 54,512 useful MACs/px; the
-// merged stages run 99,568 (C2_1's 3x3 and C3_2's 1x1 taps zero-padded
-// into S2's 5x5 and S3's 3x3), and the 6-px halo around a 16x16 tile
-// recomputes S1-S3 on 1.5x the output area (S2 alone 120k MACs per output
-// pixel): about 2.9x the useful work issued. So the kernel is bound by
-// tensor-core issue and by the shared-memory and L1 bandwidth that feed
-// `mma.sync` (4 A-words per k-chunk and one B load per n-tile), not by
-// device memory: it reads 1 byte and writes 1 byte per pixel. The design
-// keeps all intermediates on chip (no device-memory traffic between
-// stages) and pads S1's position stride to 80 bytes so that the A loads
-// of one warp hit 32 distinct banks. Separate GEMMs for the merged
-// branches (no zero taps), larger tiles (less halo), wgmma with TMA-fed
-// operands and an interior/edge split are the next steps.
+// No stale or unwritten byte reaches an MMA: on every tile the window
+// expansion writes every position S1 reads, and each stage writes its
+// whole output region (0 where masked) and zeroes its tail (the positions
+// past the region that the next stage's last, shifted block reads), before
+// the barrier that precedes the next stage. Buffers alias (S3 over S1;
+// the expanded window and S4's shares over S2) only across such barriers;
+// every generic-proxy write is fenced for the async proxy before them.
+// tests/test_torch_fused_split.py emulates this layout in numpy and checks
+// that property byte by byte; ops/fused.py holds the same constants.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "qvrcnn_stage.cuh"
+#include "hopper_wgmma.cuh"
 
 namespace {
 
-using namespace qvrcnn;
+using namespace hopper;
 
-// per-channel epilogue vectors, int32: for each of S1..S3 the four rows
-// [b' | B | mul | shift] of C entries (ops/fused.FusedWeights.vec)
-constexpr int VEC_LEN = FoldedEpilogue::ROWS * (C1 + C2 + C3);
-constexpr int SMEM_VEC = 0;
-constexpr int SMEM_ACT = SMEM_VEC + VEC_LEN * 4;    // 2560
-constexpr int SMEM_BYTES = SMEM_ACT + ACT_BYTES;    // 84,176
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
-__global__ void __launch_bounds__(NTHREADS, 2)
-qvrcnn_fused_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
-                    const int8_t* __restrict__ w1, const int8_t* __restrict__ w2,
-                    const int8_t* __restrict__ w3, const int8_t* __restrict__ w4,
-                    const int* __restrict__ vec_g, int H, int W, Bounds bd,
-                    int b4, int mul4, int shift4) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* vec = reinterpret_cast<int*>(smem + SMEM_VEC);
-  int8_t* act = reinterpret_cast<int8_t*>(smem + SMEM_ACT);
-  int8_t* s3 = act + ACT_S3;
+// ---- tile and regions (ops/fused.py: TILE_*, PITCH, ROWS, BLOCKS, PLANE)
+constexpr int TH = 24, TW = 40, HALO = 6;
+constexpr int P0 = TW + 12, P1 = TW + 8, P2 = TW + 4, P3 = TW + 2;  // row pitches
+constexpr int R0 = TH + 12, R1 = TH + 8, R2 = TH + 4, R3 = TH + 2;  // rows
+constexpr int RAW = R0 * P0;                                        // window bytes
+constexpr int MB1 = cdiv(R1 * P1, 64), MB2 = cdiv(R2 * P1, 64);     // 64-position blocks
+constexpr int MB3 = cdiv(R3 * P2, 64), MB4 = cdiv(R3 * P3, 64);  // S4: all of S3
+constexpr int EXP = MB1 * 64 + 3 * P1;                          // S1's A positions
+constexpr int PS1 = cmax(R1 * P1, MB2 * 64 + 4 * P1 + 4);      // plane positions
+constexpr int PS2 = cmax(R2 * P2, MB3 * 64 + 2 * P2 + 3);
+constexpr int PS3 = cmax(R3 * P3, MB4 * 64 + 1);
+constexpr int BUF_A_BYTES = cmax(4 * PS1, 3 * PS3) * 16;  // S1, then S3
+constexpr int BUF_B_BYTES = cmax(3 * PS2, EXP) * 16;      // expanded window, then S2
 
-  const int tx0 = blockIdx.x * T, ty0 = blockIdx.y * T;
-  const size_t frame = size_t(blockIdx.z) * H * W;
-  const uint8_t* const xf[1] = {x + frame};
+// ---- weight image (ops/fused.SPLIT_CHUNKS / split_operand), in order:
+// S1 (1 chunk, N 64); S2 centre (9 taps x 2, N 48), outer (16 x 2, N 16);
+// S3 centre (2, N 48), other taps (8, N 16) then their plane-2 pairs (4);
+// S4 tap-major (2, N 16: column t = tap t; planes 0+1, then 2 + zero half).
+constexpr int N_S2 = 18 + 32, N_S3 = 2 + 12, N_S4 = 2;
+constexpr int W_S1 = 0, W_S2C = W_S1 + 32 * 64, W_S2O = W_S2C + 18 * 32 * 48;
+constexpr int W_S3C = W_S2O + 32 * 32 * 16, W_S3O = W_S3C + 2 * 32 * 48;
+constexpr int W_S4 = W_S3O + 12 * 32 * 16, W_BYTES = W_S4 + N_S4 * 32 * 16;
+// S4's per-tap shares, int32 [9][SHARE_STRIDE], over S2's buffer (dead
+// after S3); the stride's +4 keeps a warp's stores in distinct banks
+constexpr int SHARE_STRIDE = MB4 * 64 + 4;
+static_assert(9 * SHARE_STRIDE * 4 <= BUF_B_BYTES, "S4 shares fit S2's buffer");
 
-  load_inputs<1>(vec, vec_g, VEC_LEN, act, xf, W, ty0, tx0, bd);
-  __syncthreads();
-  stages_123<FoldedEpilogue, 1, false>(act, w1, w2, w3, vec, ty0, tx0, bd);
+static_assert(TH == 24, "ops/fused.TILE_H");
+static_assert(TW == 40, "ops/fused.TILE_W");
+static_assert(P0 == 52, "");
+static_assert(P1 == 48, "");
+static_assert(P2 == 44, "");
+static_assert(P3 == 42, "");
+static_assert(MB1 == 24, "");
+static_assert(MB2 == 21, "");
+static_assert(MB3 == 18, "");
+static_assert(MB4 == 18, "");
+static_assert(EXP == 1680, "");
+static_assert(PS1 == 1540, "");
+static_assert(PS2 == 1243, "");
+static_assert(PS3 == 1153, "");
+static_assert(BUF_A_BYTES == 98560, "");
+static_assert(BUF_B_BYTES == 59664, "");
+static_assert(W_BYTES == 56320, "ops/fused.SPLIT_BYTES");
+static_assert(N_S2 == 50, "");
+static_assert(N_S3 == 14, "");
+static_assert(N_S4 == 2, "");
 
-  // S4 (48 -> 1, N padded to 8) + final residual requant + residual add
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  uint8_t* yf = y + frame;
-  for (int mt = warp; mt < T * T / 16; mt += NWARPS) {
-    int acc[1][1][4];
-    mma_tile<1, false, C3, 3, R3, S3_STRIDE, T, 1>(s3, w4, mt, acc);
-    if (t != 0) continue;  // output channel 0 lives in lanes with t == 0
+// per-channel epilogue vectors: ops/fused.FusedWeights.vec holds, for
+// each of S1..S3, the int32 rows [b' | B | mul | shift] of C entries; the
+// block keeps them as one int4 (b', B, mul, shift) per channel, channels
+// of S1, S2, S3 in turn, so that an epilogue loads a channel's four in one
+// 16-byte load.
+constexpr int NCH = 64 + 48 + 48;
+constexpr int VEC_LEN = 4 * NCH;
+constexpr int SM_W = 0;
+constexpr int SM_VEC = SM_W + W_BYTES;
+constexpr int SM_RAW = SM_VEC + VEC_LEN * 4;
+constexpr int SM_A = SM_RAW + cdiv(RAW, 16) * 16;
+constexpr int SM_B = SM_A + BUF_A_BYTES;
+constexpr int SMEM_BYTES = SM_B + BUF_B_BYTES;  // 218,976
+static_assert(SMEM_BYTES <= 232448, "one block per SM");
+
+constexpr int NWG = 4, NTHREADS = 128 * NWG;  // 4 warpgroups, at most 128 registers
+constexpr int RAW_PER_THREAD = cdiv(RAW, NTHREADS);
+constexpr int MAX_DEVICES = 64;
+
+struct Bounds {
+  int r_lo, r_hi, c_lo, c_hi;  // valid frame rectangle (already clipped)
+  __device__ bool inside(int r, int c) const {
+    return r >= r_lo && r < r_hi && c >= c_lo && c < c_hi;
+  }
+};
+
+struct Tile {
+  int f, ty0, tx0;
+};
+
+__device__ __forceinline__ Tile tile_at(int t, int tiles_x, int per_frame) {
+  const int f = t / per_frame, rem = t - f * per_frame;
+  const int ty = rem / tiles_x;
+  return {f, ty * TH, (rem - ty * tiles_x) * TW};
+}
+
+// The folded BLU requant (ops/requant.requant_fast) with channel vector
+// v = (b', B, mul, shift): min((clip(acc + b', 0, B) * mul) >> shift, 127).
+// The clip is one Hopper DPX instruction; the final min is implied, as
+// FusedWeights.from_engine admits only tables with (B * mul) >> shift ==
+// 127 and the value is monotone in the clipped sum.
+__device__ __forceinline__ int requant(int4 v, int acc) {
+  return (__viaddmin_s32_relu(acc, v.x, v.y) * v.z) >> v.w;
+}
+
+// Position lane/4 (+8) of warp w's 16 rows of a 64-position block.
+__device__ __forceinline__ int row_of(int half) {
+  return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2) + 8 * half;
+}
+
+// Epilogue of S1..S3 for one block: output position q = p0 + row, on the
+// input pitch PIN, is region position (r, c); columns past the region's
+// width and rows past its last are dropped, the rest stored on the region's
+// pitch POUT, two channels per 16-bit store, 0 outside the frame bounds.
+template <int COUT, int PIN, int ROWS, int POUT, int PS>
+__device__ __forceinline__ void store_stage(const int (&acc)[COUT / 2], int p0, uint8_t* out,
+                                            const int4* vec, int org_r, int org_c, Bounds bd) {
+  const int t = threadIdx.x & 3;
+  bool keep[2], ok[2];
+  uint8_t* dst[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int q = p0 + row_of(half);
+    const int r = q / PIN, c = q - r * PIN;
+    keep[half] = r < ROWS && c < POUT;
+    ok[half] = bd.inside(org_r + r, org_c + c);
+    dst[half] = out + (r * POUT + c) * 16 + 2 * t;
+  }
+#pragma unroll
+  for (int j = 0; j < COUT / 8; ++j) {
+    const int4 v0 = vec[8 * j + 2 * t], v1 = vec[8 * j + 2 * t + 1];
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int m = mt * 16 + g + 8 * half;
-      const int r = ty0 + m / T, c = tx0 + m % T;
-      if (r >= H || c >= W) continue;
-      const long long u = (long long)acc[0][0][2 * half] + b4;
-      const long long res = (u * mul4 + (1LL << (shift4 - 1))) >> shift4;
-      const long long rec = (long long)xf[0][size_t(r) * W + c] + res;
-      yf[size_t(r) * W + c] = uint8_t(rec < 0 ? 0 : (rec > 255 ? 255 : rec));
+      const int b0 = requant(v0, acc[4 * j + 2 * half]);
+      const int b1 = requant(v1, acc[4 * j + 2 * half + 1]);
+      if (keep[half])
+        *reinterpret_cast<uint16_t*>(dst[half] + (j >> 1) * PS * 16 + (j & 1) * 8) =
+            ok[half] ? uint16_t(b0 | (b1 << 8)) : uint16_t(0);
     }
   }
 }
+
+// Zero positions [N, PS) of every plane: the tail the next stage's last,
+// shifted block reads (its outputs there are dropped).
+template <int PLANES, int N, int PS>
+__device__ __forceinline__ void zero_tails(uint8_t* out) {
+  constexpr int T = PS - N;
+  if constexpr (T > 0) {
+    for (int i = threadIdx.x; i < PLANES * T; i += NTHREADS) {
+      const int pl = i / T, p = N + (i - pl * T);
+      *reinterpret_cast<uint4*>(out + (pl * PS + p) * 16) = make_uint4(0, 0, 0, 0);
+    }
+  }
+}
+
+template <int L>
+__device__ __forceinline__ void zero(int (&d)[L]) {
+#pragma unroll
+  for (int i = 0; i < L; ++i) d[i] = 0;
+}
+
+// Raster index of the i-th 5x5 tap outside the centre 3x3, and of the
+// i-th 3x3 tap other than the centre.
+__host__ __device__ constexpr int outer5(int i) {
+  return i < 5 ? i : (i < 11 ? (i - 5) / 2 * 5 + 5 + (i - 5) % 2 * 4 : i + 9);
+}
+__host__ __device__ constexpr int other3(int i) { return i < 4 ? i : i + 1; }
+
+// Each stage: warpgroup wg takes blocks wg, wg + 4, ...; a block's
+// chunks are issued back to back, then one wait. Chunks of different
+// widths accumulate into disjoint registers, added after the wait (an
+// N = 16 wgmma into part of the N = 48 accumulator makes ptxas serialize
+// the wgmma pipeline, warning C7511).
+
+__device__ __forceinline__ void stage1(uint32_t sbase, uint8_t* smem, Tile tl, Bounds bd) {
+  const int wg = threadIdx.x >> 7;
+  const uint64_t db = desc(sbase + SM_W + W_S1, 128, 256);
+  zero_tails<4, R1 * P1, PS1>(smem + SM_A);
+  for (int mb = wg; mb < MB1; mb += NWG) {
+    int acc[32];
+    zero(acc);
+    __syncwarp();
+    wg_fence();
+    mma_n64<0>(acc, at(desc(sbase + SM_B + mb * 64 * 16, 0, 128), 0, 3 * P1), db);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+    store_stage<64, P1, R1, P1, PS1>(acc, mb * 64, smem + SM_A,
+                                     reinterpret_cast<const int4*>(smem + SM_VEC),
+                                     tl.ty0 - 4, tl.tx0 - 4, bd);
+  }
+}
+
+__device__ __forceinline__ void stage2(uint32_t sbase, uint8_t* smem, Tile tl, Bounds bd) {
+  const int wg = threadIdx.x >> 7;
+  const uint64_t db = desc(sbase + SM_W, 128, 256);
+  zero_tails<3, R2 * P2, PS2>(smem + SM_B);
+  for (int mb = wg; mb < MB2; mb += NWG) {
+    const uint64_t da = desc(sbase + SM_A + mb * 64 * 16, 0, 128);
+    int acc[24], acc2[8];  // channels 0-47; C2_2's outer taps (32-47)
+    zero(acc);
+    zero(acc2);
+    __syncwarp();
+    wg_fence();
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {  // centre taps: C2_1 ++ C2_2, channels 0-47
+      const int s = (1 + i / 3) * P1 + 1 + i % 3;
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        mma_n48<0>(acc, at(da, 2 * c * PS1 + s, PS1), at(db, (W_S2C + (2 * i + c) * 1536) / 16, 0));
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {  // outer taps: C2_2, channels 32-47
+      const int s = outer5(i) / 5 * P1 + outer5(i) % 5;
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        mma_n16<0>(acc2, at(da, 2 * c * PS1 + s, PS1), at(db, (W_S2O + (2 * i + c) * 512) / 16, 0));
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+    fence_regs(acc2);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[16 + i] += acc2[i];
+    store_stage<48, P1, R2, P2, PS2>(acc, mb * 64, smem + SM_B,
+                                     reinterpret_cast<const int4*>(smem + SM_VEC) + 64,
+                                     tl.ty0 - 2, tl.tx0 - 2, bd);
+  }
+}
+
+__device__ __forceinline__ void stage3(uint32_t sbase, uint8_t* smem, Tile tl, Bounds bd) {
+  const int wg = threadIdx.x >> 7;
+  const uint64_t db = desc(sbase + SM_W, 128, 256);
+  zero_tails<3, R3 * P3, PS3>(smem + SM_A);
+  constexpr int SC = P2 + 1;  // centre tap
+  for (int mb = wg; mb < MB3; mb += NWG) {
+    const uint64_t da = desc(sbase + SM_B + mb * 64 * 16, 0, 128);
+    int acc[24], acc1[8];  // channels 0-47; C3_1's other taps (0-15)
+    zero(acc);
+    zero(acc1);
+    __syncwarp();
+    wg_fence();
+    // centre tap: C3_1 ++ C3_2, channels 0-47; planes 0+1, then 2 + zero half
+    mma_n48<0>(acc, at(da, SC, PS2), at(db, W_S3C / 16, 0));
+    mma_n48<0>(acc, at(da, 2 * PS2 + SC, 1), at(db, (W_S3C + 1536) / 16, 0));
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {  // other taps: C3_1, channels 0-15
+      const int s = other3(i) / 3 * P2 + other3(i) % 3;
+      mma_n16<0>(acc1, at(da, s, PS2), at(db, (W_S3O + i * 512) / 16, 0));
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // plane 2 of taps 2j and 2j + 1
+      const int sa = other3(2 * j) / 3 * P2 + other3(2 * j) % 3;
+      const int sb = other3(2 * j + 1) / 3 * P2 + other3(2 * j + 1) % 3;
+      mma_n16<0>(acc1, at(da, 2 * PS2 + sa, sb - sa), at(db, (W_S3O + (8 + j) * 512) / 16, 0));
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+    fence_regs(acc1);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] += acc1[i];
+    store_stage<48, P2, R3, P3, PS3>(acc, mb * 64, smem + SM_A,
+                                     reinterpret_cast<const int4*>(smem + SM_VEC) + 112,
+                                     tl.ty0 - 1, tl.tx0 - 1, bd);
+  }
+}
+
+// S4 (48 -> 1), tap-major: each S3 position is read once, by two chunks
+// against N = 16 columns of which column t holds tap t's weights, so
+// acc[p, t] is tap t's share of the output at p - (dy_t * P3 + dx_t). The
+// 9 shares go to shared memory and each output pixel sums its own; then
+// the final residual requant and the residual add.
+__device__ __forceinline__ void stage4(uint32_t sbase, uint8_t* smem, const uint8_t* xf,
+                                       uint8_t* yf, int H, int W, Tile tl, int b4, int mul4,
+                                       int shift4) {
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 3;
+  const uint64_t db = desc(sbase + SM_W, 128, 256);
+  int* share = reinterpret_cast<int*>(smem + SM_B);
+  for (int mb = wg; mb < MB4; mb += NWG) {
+    const uint64_t da = desc(sbase + SM_A + mb * 64 * 16, 0, 128);
+    int acc[8];
+    zero(acc);
+    __syncwarp();
+    wg_fence();
+    mma_n16<0>(acc, at(da, 0, PS3), at(db, W_S4 / 16, 0));
+    mma_n16<0>(acc, at(da, 2 * PS3, 1), at(db, (W_S4 + 512) / 16, 0));
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int p = mb * 64 + row_of(half);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int tap = 8 * j + 2 * t + e;
+          if (tap < 9) share[tap * SHARE_STRIDE + p] = acc[4 * j + 2 * half + e];
+        }
+    }
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < TH * TW; o += NTHREADS) {
+    const int r = o / TW, c = o - (o / TW) * TW;
+    const int fr = tl.ty0 + r, fc = tl.tx0 + c;
+    if (fr >= H || fc >= W) continue;
+    const int* sh = share + r * P3 + c;
+    int u = 0;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) u += sh[tap * SHARE_STRIDE + tap / 3 * P3 + tap % 3];
+    const long long v = (long long)u + b4;
+    const long long res = (v * mul4 + (1LL << (shift4 - 1))) >> shift4;
+    const size_t i = size_t(fr) * W + fc;
+    const long long rec = (long long)xf[i] + res;
+    yf[i] = uint8_t(rec < 0 ? 0 : (rec > 255 ? 255 : rec));
+  }
+}
+
+// The window of a tile, x - 128 inside the frame bounds and 0 outside,
+// loaded into registers (issued early, stored to shared memory later).
+__device__ __forceinline__ void load_window(uint32_t (&pre)[RAW_PER_THREAD], const uint8_t* x,
+                                            int H, int W, Tile tl, Bounds bd) {
+  const uint8_t* xf = x + size_t(tl.f) * H * W;
+#pragma unroll
+  for (int k = 0; k < RAW_PER_THREAD; ++k) {
+    const int i = threadIdx.x + k * NTHREADS;
+    const int r = tl.ty0 - HALO + i / P0, c = tl.tx0 - HALO + i % P0;
+    pre[k] = (i < RAW && bd.inside(r, c)) ? uint32_t(xf[size_t(r) * W + c]) : 128u;
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+qvrcnn_fused_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
+                    const int8_t* __restrict__ wsplit, const int* __restrict__ vec_g,
+                    int nframes, int H, int W, Bounds bd, int b4, int mul4, int shift4) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint32_t sbase = smem_addr(smem);
+  for (int i = threadIdx.x; i < W_BYTES / 16; i += NTHREADS)
+    cp_async16(sbase + SM_W + i * 16, wsplit + i * 16);
+  int* vec = reinterpret_cast<int*>(smem + SM_VEC);
+  for (int i = threadIdx.x; i < VEC_LEN; i += NTHREADS) {  // [stage][row][C] -> [ch][row]
+    const int row_start = i < 256 ? 0 : (i < 448 ? 256 : 448);
+    const int cout = i < 256 ? 64 : 48, ch0 = i < 256 ? 0 : (i < 448 ? 64 : 112);
+    const int row = (i - row_start) / cout, ch = ch0 + (i - row_start) % cout;
+    vec[4 * ch + row] = vec_g[i];
+  }
+
+  const int tiles_x = cdiv(W, TW), per_frame = cdiv(H, TH) * tiles_x;
+  const int total = nframes * per_frame;
+  uint32_t pre[RAW_PER_THREAD];
+  int tile = blockIdx.x;
+  load_window(pre, x, H, W, tile_at(tile, tiles_x, per_frame), bd);
+  cp_async_wait_all();
+  fence_async_smem();
+  __syncthreads();
+
+  int8_t* raw = reinterpret_cast<int8_t*>(smem + SM_RAW);
+  for (; tile < total; tile += gridDim.x) {
+    const Tile tl = tile_at(tile, tiles_x, per_frame);
+#pragma unroll
+    for (int k = 0; k < RAW_PER_THREAD; ++k) {
+      const int i = threadIdx.x + k * NTHREADS;
+      if (i < RAW) raw[i] = int8_t(int(pre[k]) - 128);
+    }
+    __syncthreads();
+    if (tile + int(gridDim.x) < total)
+      load_window(pre, x, H, W, tile_at(tile + gridDim.x, tiles_x, per_frame), bd);
+    // expanded window on S1's pitch: position (r, c) holds window (r + i, c + j)
+    // as byte 5i + j
+    for (int e = threadIdx.x; e < EXP; e += NTHREADS) {
+      uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int j = 0; j < 15; ++j) {
+        const int idx = (e / P1 + j / 5) * P0 + e % P1 + j % 5;
+        const uint32_t b = idx < RAW ? uint32_t(uint8_t(raw[idx])) : 0u;
+        w[j >> 2] |= b << (8 * (j & 3));
+      }
+      *reinterpret_cast<uint4*>(smem + SM_B + e * 16) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    fence_async_smem();
+    __syncthreads();
+    stage1(sbase, smem, tl, bd);
+    fence_async_smem();
+    __syncthreads();
+    stage2(sbase, smem, tl, bd);
+    fence_async_smem();
+    __syncthreads();
+    stage3(sbase, smem, tl, bd);
+    fence_async_smem();
+    __syncthreads();
+    const size_t frame = size_t(tl.f) * H * W;
+    stage4(sbase, smem, x + frame, y + frame, H, W, tl, b4, mul4, shift4);
+  }
+}
+
+int sm_count[MAX_DEVICES] = {};  // 0 until the device's first launch
 
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream` (a cudaStream_t) on the current device. Returns the
-// cudaError_t of the device query, of the one-time shared-memory attribute
-// call for this device, or of the launch (cudaGetLastError); 0 on success.
-int qvrcnn_fused_forward(const void* x, void* y, const void* w1,
-                         const void* w2, const void* w3, const void* w4,
-                         const void* vec, int B, int H, int W, int row_lo,
-                         int row_hi, int col_lo, int col_hi, int b4, int mul4,
-                         int shift4, void* stream) {
-  static bool smem_set[MAX_DEVICES] = {};
-  const int err = set_smem_once(qvrcnn_fused_kernel, SMEM_BYTES, smem_set);
-  if (err != 0) return err;
+// Launch on `stream` (a cudaStream_t) on the current device: one block per
+// SM (at most one per tile). Returns the cudaError_t of the device query,
+// of the one-time attribute calls for this device, or of the launch
+// (cudaGetLastError); 0 on success.
+int qvrcnn_fused_forward(const void* x, void* y, const void* wsplit, const void* vec, int B,
+                         int H, int W, int row_lo, int row_hi, int col_lo, int col_hi, int b4,
+                         int mul4, int shift4, void* stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return int(err);
+  if (dev >= MAX_DEVICES) return int(cudaErrorInvalidDevice);
+  if (sm_count[dev] == 0) {
+    err = cudaFuncSetAttribute(qvrcnn_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_BYTES);
+    if (err != cudaSuccess) return int(err);
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return int(err);
+    sm_count[dev] = sms;
+  }
   Bounds bd{row_lo > 0 ? row_lo : 0, row_hi < H ? row_hi : H,
             col_lo > 0 ? col_lo : 0, col_hi < W ? col_hi : W};
-  dim3 grid((W + T - 1) / T, (H + T - 1) / T, B);
-  qvrcnn_fused_kernel<<<grid, NTHREADS, SMEM_BYTES,
-                        static_cast<cudaStream_t>(stream)>>>(
+  const int total = B * cdiv(H, TH) * cdiv(W, TW);
+  const int grid = total < sm_count[dev] ? total : sm_count[dev];
+  qvrcnn_fused_kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(x), static_cast<uint8_t*>(y),
-      static_cast<const int8_t*>(w1), static_cast<const int8_t*>(w2),
-      static_cast<const int8_t*>(w3), static_cast<const int8_t*>(w4),
-      static_cast<const int*>(vec), H, W, bd, b4, mul4, shift4);
+      static_cast<const int8_t*>(wsplit), static_cast<const int*>(vec), B, H, W, bd, b4, mul4,
+      shift4);
   return int(cudaGetLastError());
 }
 

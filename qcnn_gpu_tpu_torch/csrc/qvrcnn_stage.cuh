@@ -1,6 +1,7 @@
-// Stage GEMMs of the QVRCNN tile kernels, shared by qvrcnn_fused.cu (one
-// frame per block, folded epilogue), qvrcnn_pair.cu (two frames per block,
-// folded epilogue) and qvrcnn_literal.cu (one frame, literal BLU chain).
+// Stage GEMMs of the QVRCNN tile kernels of generations 2 and 1, shared by
+// qvrcnn_pair.cu (two frames per block, folded epilogue) and
+// qvrcnn_literal.cu (one frame, literal BLU chain). Generation 3
+// (qvrcnn_fused.cu) has a design of its own on hopper_wgmma.cuh.
 //
 // A block holds one 16x16 output tile of NF frames and, per frame, the
 // input window and the S1-S3 activations in shared memory (an "activation

@@ -7,6 +7,15 @@ launch of the hand-written CUDA kernel `csrc/qvrcnn_fused.cu`;
 function, with the same folded epilogue and frame-bounds masking, that
 the kernel is held against bit for bit.
 
+The kernel's operand layout is described here, in Python, so that the
+tests can emulate it: `SPLIT_CHUNKS` lists, stage by stage, the 32-deep
+K chunks of its `wgmma` GEMMs (which channel planes and taps each chunk's
+two halves read, and which output channels it writes), `split_operand`
+packs the weights into the shared-memory image those chunks read, and
+`TILE_H`, `TILE_W`, `PITCH`, `ROWS`, `BLOCKS`, `EXPANDED` and `PLANE` give
+the tile and its activation regions.
+`csrc/qvrcnn_fused.cu` mirrors every one of them.
+
 Frame bounds `[row_lo, row_hi) x [col_lo, col_hi)` (default the whole
 frame) stand in for the JAX kernel's `row_bounds`/`col_bounds`
 (pallas_pipeline3.py:750-755): input pixels outside read as 0 in the
@@ -34,7 +43,7 @@ from qcnn_gpu_tpu_torch.ops.requant import (
 )
 
 KERNEL = "qvrcnn_fused"
-MAX_FRAMES_PER_LAUNCH = 65535  # gridDim.z
+MAX_TILES_PER_LAUNCH = 2**31 - 1  # the kernel counts tiles in an int
 
 
 def mma_b_fragments(w_hwio: np.ndarray) -> np.ndarray:
@@ -55,6 +64,139 @@ def mma_b_fragments(w_hwio: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(frag).reshape(-1)
 
 
+# ---- generation 3 (csrc/qvrcnn_fused.cu): tile, regions, GEMM chunks
+#
+# A block computes TILE_H x TILE_W output pixels. Its regions, each one
+# row pitch wide: the input window (x-128, 6-px halo), S1 (64 channels),
+# S2 = Conc1 (48) and S3 = Conc2 (48). S2-S4 compute their outputs on
+# their INPUT region's pitch (flat offsets: output position q reads input
+# position q + dy * pitch + dx), in 64-position blocks; the epilogue drops
+# the columns past the output region's width and the positions past its
+# last row, and stores the rest on the output region's own pitch. S1
+# reads an expanded window built on S1's own pitch, so it drops nothing.
+# Activations are channel-block-major: plane b holds channels 16b..16b+15
+# of every position, 16 bytes per position, PLANE[i] positions per plane
+# (the region plus a tail that the last block's shifted reads reach).
+TILE_H, TILE_W = 24, 40
+PITCH = (TILE_W + 12, TILE_W + 8, TILE_W + 4, TILE_W + 2)  # window, S1, S2, S3
+ROWS = (TILE_H + 12, TILE_H + 8, TILE_H + 4, TILE_H + 2)
+BLOCKS = (  # 64-position M blocks of S1..S4
+    -(-ROWS[1] * PITCH[1] // 64),  # S1 on its own pitch (its A operand is built on it)
+    -(-ROWS[2] * PITCH[1] // 64),
+    -(-ROWS[3] * PITCH[2] // 64),
+    -(-ROWS[3] * PITCH[3] // 64),  # S4 over the whole S3 region (tap-major, below)
+)
+EXPANDED = BLOCKS[0] * 64 + 3 * PITCH[1]  # positions of S1's A operand
+PLANE = (
+    max(ROWS[1] * PITCH[1], BLOCKS[1] * 64 + 4 * PITCH[1] + 4),  # S1: S2 reads 5x5
+    max(ROWS[2] * PITCH[2], BLOCKS[2] * 64 + 2 * PITCH[2] + 3),  # S2: S3 reads 3x3 (+1)
+    max(ROWS[3] * PITCH[3], BLOCKS[3] * 64 + 1),  # S3: S4 reads its blocks (+1)
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Chunk:
+    """One `wgmma ... k32` of a stage: K = two 16-channel halves, each
+    (plane, dy, dx) of the input region, or None for a half whose B rows
+    are zero (the A descriptor then points 16 bytes past the first half);
+    it adds into output channels [col0, col0 + n)."""
+
+    halves: Tuple[Tuple[int, int, int], Optional[Tuple[int, int, int]]]
+    col0: int
+    n: int
+
+
+def _stage_chunks(k: int, planes: int, center, center_cols, other_cols):
+    """Chunks of a k x k stage over `planes` 16-channel planes: the taps in
+    `center` (raster indices) write `center_cols`, the others `other_cols`
+    (col0, n). Planes 0 and 1 of a tap share a chunk; plane 2 (48-channel
+    inputs) pairs with plane 2 of the next tap in the same group, the
+    group's odd one out with a zero half."""
+    chunks = []
+    for taps, (col0, n) in ((center, center_cols), ([t for t in range(k * k)
+                            if t not in center], other_cols)):
+        if not taps or n == 0:
+            continue
+        tap = [(t // k, t % k) for t in taps]
+        for dy, dx in tap:
+            chunks.append(Chunk(((0, dy, dx), (1, dy, dx)), col0, n))
+            if planes == 4:
+                chunks.append(Chunk(((2, dy, dx), (3, dy, dx)), col0, n))
+        if planes == 3:
+            odd = [(2, dy, dx) for dy, dx in tap] + [None]
+            chunks += [Chunk((odd[i], odd[i + 1]), col0, n) for i in range(0, len(tap), 2)]
+    return tuple(chunks)
+
+
+# S2 = C2_1 (3x3, Conc1 channels 0-31) + C2_2 (5x5, 32-47): the 9 centre
+# taps carry both (N = 48), the 16 outer taps C2_2 alone (N = 16).
+# S3 = C3_1 (3x3, Conc2 0-15) + C3_2 (1x1, 16-47): the centre tap carries
+# both (N = 48), the other 8 C3_1 alone (N = 16).
+# S4 = C4 (one output channel) runs tap-major: its two chunks read each
+# S3 position once (planes 0+1, plane 2 + a zero half) against N = 16
+# columns, column t < 9 holding tap t's weights, so acc[p, t] is tap t's
+# share of the output at p - (dy_t * pitch + dx_t); the output sums its 9
+# shares (`S4_TAPS`).
+SPLIT_CHUNKS = (
+    _stage_chunks(5, 4, [6, 7, 8, 11, 12, 13, 16, 17, 18], (0, 48), (32, 16)),
+    _stage_chunks(3, 3, [4], (0, 48), (0, 16)),
+    (Chunk(((0, 0, 0), (1, 0, 0)), 0, 16), Chunk(((2, 0, 0), None), 0, 16)),
+)
+S4_TAPS = tuple((t // 3, t % 3) for t in range(9))
+S1_N = 64
+SPLIT_OFFSETS = tuple(np.cumsum([0, 32 * S1_N] + [32 * c.n for s in SPLIT_CHUNKS for c in s]))
+SPLIT_BYTES = int(SPLIT_OFFSETS[-1])  # 56,320
+
+
+def _b_chunk(wk: np.ndarray) -> np.ndarray:
+    """B [32, n] (K rows) -> wgmma's K-major core matrices without swizzle:
+    byte (k, n) at (n // 8) * 256 + (k // 16) * 128 + (n % 8) * 16 + k % 16
+    (leading-dimension offset 128, stride offset 256)."""
+    n = wk.shape[1]
+    return np.ascontiguousarray(wk.reshape(2, 16, n // 8, 8).transpose(2, 0, 3, 1)).reshape(-1)
+
+
+def split_operand(w_merged) -> np.ndarray:
+    """The 4 branch-merged HWIO weights (S1..S4; any integer dtype) -> the
+    generation-3 kernel's shared-memory weight image, SPLIT_BYTES entries:
+    S1's one chunk, then every chunk of SPLIT_CHUNKS in order. Only the
+    six real layers' weights are packed; merged zero taps are not.
+
+    S1 reads an expanded window, on S1's pitch, whose position (r, c)
+    holds 15 taps, window rows r..r+2 x columns c..c+4 (byte 5*i + j = row
+    r+i, column c+j; byte 15 = 0); its chunk is that position (K 0-15) and
+    the one 3 rows below (K 16-31, row 5 = zero weights)."""
+    w1, w2, w3, w4 = (np.asarray(w) for w in w_merged)
+    out = []
+    k1 = np.zeros((32, S1_N), w1.dtype)
+    for h in range(2):
+        for i in range(15):
+            dy, dx = 3 * h + i // 5, i % 5
+            if dy < 5:
+                k1[16 * h + i] = w1[dy, dx, 0]
+    out.append(_b_chunk(k1))
+    for w, chunks in zip((w2, w3), SPLIT_CHUNKS):
+        for c in chunks:
+            wk = np.zeros((32, c.n), w.dtype)
+            for h, half in enumerate(c.halves):
+                if half is not None:
+                    plane, dy, dx = half
+                    wk[16 * h:16 * h + 16] = w[dy, dx, 16 * plane:16 * plane + 16,
+                                               c.col0:c.col0 + c.n]
+            out.append(_b_chunk(wk))
+    for c in SPLIT_CHUNKS[2]:  # S4: column t = tap t
+        wk = np.zeros((32, c.n), w4.dtype)
+        for h, half in enumerate(c.halves):
+            if half is not None:
+                plane = half[0]
+                for t, (dy, dx) in enumerate(S4_TAPS):
+                    wk[16 * h:16 * h + 16, t] = w4[dy, dx, 16 * plane:16 * plane + 16, 0]
+        out.append(_b_chunk(wk))
+    packed = np.concatenate(out)
+    assert packed.size == SPLIT_BYTES
+    return packed
+
+
 @dataclasses.dataclass(frozen=True)
 class FusedWeights:
     """Everything the fused kernel reads, on one device (counterpart of
@@ -68,7 +210,8 @@ class FusedWeights:
     the fold would differ from the literal BLU."""
 
     w: Tuple[torch.Tensor, ...]  # 4 merged int8 HWIO (plain version)
-    frag: Tuple[torch.Tensor, ...]  # 4 int8 B operands in fragment order
+    frag: Tuple[torch.Tensor, ...]  # 4 int8 mma.sync B operands (generation 2)
+    split: torch.Tensor  # int8 [SPLIT_BYTES]: generation 3's weight image
     bias: Tuple[torch.Tensor, ...]  # S1..S3 folded b' [C], S4 raw b [1], int32
     bound: Tuple[torch.Tensor, ...]  # S1..S3 B [C], int32
     mul: Tuple[torch.Tensor, ...]
@@ -113,6 +256,7 @@ class FusedWeights:
         return cls(
             w=tuple(as_t(x, np.int8) for x in w),
             frag=tuple(as_t(mma_b_fragments(x), np.int8) for x in w),
+            split=as_t(split_operand(w), np.int8),
             bias=tuple(as_t(x, np.int32) for x in bias),
             bound=tuple(as_t(x, np.int32) for x in bound),
             mul=tuple(as_t(x, np.int32) for x in mul),
@@ -177,7 +321,7 @@ def fused_forward_reference(
     return apply_residual_u8(x_u8, res)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 def fused_forward(
@@ -199,8 +343,9 @@ def fused_forward(
     if x_u8.device.type != "cuda":
         raise ValueError(f"no kernel for device {x_u8.device}")
     b, h, w = x_u8.shape
-    if b > MAX_FRAMES_PER_LAUNCH:
-        raise ValueError(f"at most {MAX_FRAMES_PER_LAUNCH} frames per launch, got {b}")
+    tiles = b * -(-h // TILE_H) * -(-w // TILE_W)
+    if tiles > MAX_TILES_PER_LAUNCH:
+        raise ValueError(f"at most {MAX_TILES_PER_LAUNCH} tiles per launch, got {tiles}")
     row_lo, row_hi, col_lo, col_hi = _bounds(h, w, row_lo, row_hi, col_lo, col_hi)
     out = torch.empty_like(x_u8)
     if x_u8.numel() == 0:
@@ -209,7 +354,7 @@ def fused_forward(
     with torch.cuda.device(x_u8.device):
         err = fn(
             x_u8.data_ptr(), out.data_ptr(),
-            *(t.data_ptr() for t in fw.frag), fw.vec.data_ptr(),
+            fw.split.data_ptr(), fw.vec.data_ptr(),
             b, h, w, row_lo, row_hi, col_lo, col_hi,
             fw.b4, fw.mul4, fw.shift4, build.stream_of(x_u8),
         )

@@ -1,9 +1,12 @@
-"""Measurement tools for the port, run on a CUDA GPU, and their two
-shared helpers: the card as nvidia-smi names it, and CUDA-event timing."""
+"""Measurement tools for the port, run on a CUDA GPU, and what they
+share: the card as nvidia-smi names it, CUDA-event timing and the int8
+peak that bounds are taken against."""
 
 from __future__ import annotations
 
 import subprocess
+
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8, data sheet
 
 
 def smi(fields: str = "name,power.limit") -> str:

@@ -14,8 +14,9 @@ line:
   profiler table   torch.profiler over one restore_stream, then the device
                    time of the kernel and of the copies against the host window
   h2d              pageable and pinned host->device rate of one batch, GB/s
-  kernel           fused-kernel ms/frame (CUDA events) at 416x240, 1920x1080
-                   and 2560x1600
+  kernel           fused-kernel ms/frame (CUDA events) at the six reference
+                   geometries, 416x240 to 3840x2160, beside its bound (useful
+                   MACs over the int8 peak) and its useful TOP/s
   gpu after        SM clock and power draw right after the timing loops
 
 Needs a CUDA device and raises without one.
@@ -30,13 +31,17 @@ import numpy as np
 import torch
 
 from qcnn_gpu_tpu_torch.engine.runner import Engine, read_model
+from qcnn_gpu_tpu_torch.models.topology import MACS_PER_PIXEL
 from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, fused_forward
-from qcnn_gpu_tpu_torch.tools import events_ms, smi
+from qcnn_gpu_tpu_torch.tools import PEAK_INT8_OPS, events_ms, smi
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 MODEL = os.path.join(_REPO, "assets", "golden", "model_q37.data")
 QP = 37
 H, W, N, BATCH, REPS, SEED = 1080, 1920, 16, 4, 5, 0
+# (height, width, frames per call): the reference's six geometries
+GEOMETRIES = ((240, 416, 16), (480, 832, 8), (720, 1280, 4), (1080, 1920, 4), (1600, 2560, 2),
+              (2160, 3840, 1))
 
 
 def _frames(n: int, h: int, w: int, seed: int) -> np.ndarray:
@@ -126,12 +131,14 @@ def main() -> int:
         gbs = 20 * host.numel() / (time.perf_counter() - t0) / 1e9
         print(f"h2d {name}: {gbs:.2f} GB/s ({host.numel()} B per copy)")
 
-    for gh, gw, gn in ((240, 416, 16), (1080, 1920, 4), (1600, 2560, 2)):
+    for gh, gw, gn in GEOMETRIES:
         xd = torch.from_numpy(_frames(gn, gh, gw, SEED + 1)).to(dev)
         for _ in range(3):
             fused_forward(xd, fw)
-        ms = events_ms(lambda: fused_forward(xd, fw), 20)
-        print(f"kernel {gn}x{gh}x{gw}: {ms / gn:.4f} ms/frame")
+        ms = events_ms(lambda: fused_forward(xd, fw), 20) / gn
+        ops = 2 * MACS_PER_PIXEL * gh * gw
+        print(f"kernel {gn}x{gh}x{gw}: {ms:.4f} ms/frame, bound {ops / PEAK_INT8_OPS * 1e3:.4f}, "
+              f"useful {ops / ms / 1e9:.1f} TOP/s")
     print(f"gpu after: {smi('clocks.sm,power.draw')}")
     return 0
 

@@ -1,0 +1,290 @@
+"""Generation 3's operand layout (qcnn_gpu_tpu_torch/ops/fused.py and
+csrc/qvrcnn_fused.cu), emulated in numpy int64 on the CPU.
+
+`emulate` runs the kernel's arithmetic as the kernel lays it out: a
+persistent block walking its tiles with one set of shared-memory buffers;
+the raw window, the expanded S1 operand, the channel-block-major
+activation planes with their tails, S3 written over S1's buffer and the
+expanded window under S2's; each stage's `wgmma` chunks read through
+descriptors (start, leading offset between the two K halves, stride 128
+between 8-position core matrices) from the weight image `split_operand`
+packs; outputs computed on the input region's pitch, wrapped columns and
+rows past the region dropped, frame bounds masking every stage. Every
+byte a chunk reads must have been written during the same tile; the
+emulation raises otherwise. It is held bit-equal to the plain version
+`fused_forward_reference` and to the Pallas TPU kernel
+`build_pallas_forward3` (interpret mode). Tolerance: 0 everywhere.
+"""
+
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from qcnn_gpu_tpu_torch.models.engine_params import EngineParams
+from qcnn_gpu_tpu_torch.models.qvrcnn import MergedParams
+from qcnn_gpu_tpu_torch.ops import fused as FU
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+INT4 = os.path.join(REPO, "assets", "golden", "model_q22_int4.data")
+TH, TW, P, PL = FU.TILE_H, FU.TILE_W, FU.PITCH, FU.PLANE
+RAW = FU.ROWS[0] * P[0]
+BUF_A = max(4 * PL[0], 3 * PL[2]) * 16  # S1, then S3
+BUF_B = max(3 * PL[1], FU.EXPANDED) * 16  # expanded window, then S2
+
+
+def _params(model):
+    if model == "int4":
+        from qcnn_gpu_tpu_torch.data.model_files import read_static_qfp_pc
+
+        return EngineParams.from_arrays(read_static_qfp_pc(INT4))
+    from qcnn_gpu_tpu.testing import synth_engine_params
+
+    return EngineParams.from_arrays(synth_engine_params(model))
+
+
+def _frames(n, h, w, seed):
+    from qcnn_gpu_tpu.testing import synth_frames
+
+    return synth_frames(n, h, w, seed=seed)
+
+
+class Smem:
+    """A shared-memory buffer with a mask of the bytes written this tile."""
+
+    def __init__(self, nbytes):
+        self.v = np.zeros(nbytes, np.int64)
+        self.ok = np.zeros(nbytes, bool)
+
+    def write(self, idx, vals):
+        self.v[idx] = vals
+        self.ok[idx] = True
+
+    def read(self, idx):
+        if not self.ok[idx].all():
+            raise AssertionError("an MMA reads a shared-memory byte not written this tile")
+        return self.v[idx]
+
+
+def _gemm(buf, plane_bytes, pitch, blocks, chunks, offsets, w_img, n_out):
+    """One stage's chunks over all its 64-position blocks -> int64 acc."""
+    q = np.arange(blocks * 64)
+    acc = np.zeros((q.size, n_out), np.int64)
+    k = np.arange(32)
+    for c, boff in zip(chunks, offsets):
+        (p0, dy0, dx0), h1 = c.halves
+        start = q * 16 + p0 * plane_bytes + (dy0 * pitch + dx0) * 16
+        if h1 is None:
+            lbo = 16
+        else:
+            lbo = (h1[0] - p0) * plane_bytes + ((h1[1] - dy0) * pitch + h1[2] - dx0) * 16
+        assert lbo > 0
+        a = buf.read(start[:, None] + (k // 16) * lbo + k % 16)  # row m at start + m*16
+        n = np.arange(c.n)
+        b = w_img[boff + (n[:, None] // 8) * 256 + (k // 16) * 128 + (n[:, None] % 8) * 16
+                  + k % 16]
+        acc[:, c.col0:c.col0 + c.n] += a @ b.T
+    return acc
+
+
+def _requant(acc, vec, cout):
+    b, bound, mul, shift = (vec[i * cout:(i + 1) * cout] for i in range(4))
+    u = np.clip(acc + b, 0, bound)
+    return np.minimum((u * mul) >> shift, 127)
+
+
+def emulate(x, fw, bounds=(), grid=3, zero_tails=True):
+    """The kernel's arithmetic on uint8 frames [B, H, W] -> uint8."""
+    nb, h, w = x.shape
+    lo_r, hi_r, lo_c, hi_c = FU._bounds(h, w, *(bounds or (0, None, 0, None)))
+    lo_r, hi_r, lo_c, hi_c = max(lo_r, 0), min(hi_r, h), max(lo_c, 0), min(hi_c, w)
+    w_img = fw.split.numpy().astype(np.int64)
+    vec = fw.vec.numpy().astype(np.int64)
+    vecs = (vec[:256], vec[256:448], vec[448:640])
+    out = np.zeros_like(x)
+    ty_n, tx_n = -(-h // TH), -(-w // TW)
+    total = nb * ty_n * tx_n
+    offs = FU.SPLIT_OFFSETS
+    n2, n3 = len(FU.SPLIT_CHUNKS[0]), len(FU.SPLIT_CHUNKS[1])
+    stage_offs = (offs[1:1 + n2], offs[1 + n2:1 + n2 + n3], offs[1 + n2 + n3:-1])
+    for blk in range(min(grid, total)):
+        bufs = {"A": Smem(BUF_A), "B": Smem(BUF_B)}
+        for tile in range(blk, total, grid):
+            f, rem = divmod(tile, ty_n * tx_n)
+            ty0, tx0 = (rem // tx_n) * TH, (rem % tx_n) * TW
+            for b in bufs.values():
+                b.ok[:] = False
+            # raw window: x - 128 inside the bounds, 0 outside
+            i = np.arange(RAW)
+            r, c = ty0 - 6 + i // P[0], tx0 - 6 + i % P[0]
+            inside = (r >= lo_r) & (r < hi_r) & (c >= lo_c) & (c < hi_c)
+            raw = np.where(inside, x[f, np.clip(r, 0, h - 1), np.clip(c, 0, w - 1)]
+                           .astype(np.int64) - 128, 0)
+            # expanded window on S1's pitch: position (r, c), byte 5*i+j =
+            # window (r + i, c + j)
+            e, j = np.arange(FU.EXPANDED)[:, None], np.arange(16)[None]
+            idx = (e // P[1] + j // 5) * P[0] + e % P[1] + j % 5
+            val = np.where((j < 15) & (idx < RAW), raw[np.minimum(idx, RAW - 1)], 0)
+            bufs["B"].write((e * 16 + j).ravel(), val.ravel())
+            # S1: one chunk, halves 3 window rows apart
+            s1 = FU.Chunk(((0, 0, 0), (0, 3, 0)), 0, FU.S1_N)
+            acc = _gemm(bufs["B"], 0, P[1], FU.BLOCKS[0], [s1], [0], w_img, 64)
+            src = "B"
+            for s in range(3):
+                cout = 64 if s == 0 else 48
+                dst, plane = ("A", PL[0]) if s == 0 else (("B", PL[1]) if s == 1 else ("A", PL[2]))
+                if s > 0:
+                    acc = _gemm(bufs[src], PL[s - 1] * 16, P[s], FU.BLOCKS[s],
+                                FU.SPLIT_CHUNKS[s - 1], stage_offs[s - 1], w_img, 48)
+                rows_out, halo = FU.ROWS[s + 1], (FU.ROWS[s + 1] - TH) // 2
+                q = np.arange(acc.shape[0])
+                pin = P[1] if s == 0 else P[s]  # S1 runs on its own pitch
+                rr, cc = q // pin, q % pin
+                keep = (rr < rows_out) & (cc < P[s + 1])
+                fr, fc = ty0 - halo + rr, tx0 - halo + cc
+                ok = (fr >= lo_r) & (fr < hi_r) & (fc >= lo_c) & (fc < hi_c)
+                v = np.where(ok[:, None], _requant(acc, vecs[s], cout), 0)[keep]
+                pos = (rr * P[s + 1] + cc)[keep]
+                n = np.arange(cout)
+                addr = (n // 16) * plane * 16 + pos[:, None] * 16 + n % 16
+                if zero_tails:
+                    t = np.arange(rows_out * P[s + 1] * 16, plane * 16)
+                    for pl in range(cout // 16):
+                        bufs[dst].write(pl * plane * 16 + t, 0)
+                bufs[dst].write(addr.ravel(), v.ravel())
+                src = dst
+            # S4, tap-major: acc[p, t] is tap t's share of the output at
+            # p - shift(t); then the final requant and the residual add
+            acc = _gemm(bufs["A"], PL[2] * 16, P[3], FU.BLOCKS[3], FU.SPLIT_CHUNKS[2],
+                        stage_offs[2], w_img, 16)
+            o = np.arange(TH * TW)
+            q = (o // TW) * P[3] + o % TW
+            s4 = sum(acc[q + dy * P[3] + dx, t] for t, (dy, dx) in enumerate(FU.S4_TAPS))
+            fr, fc = ty0 + o // TW, tx0 + o % TW
+            keep = (fr < h) & (fc < w)
+            u = s4[keep] + fw.b4
+            res = (u * fw.mul4 + (1 << (fw.shift4 - 1))) >> fw.shift4
+            out[f, fr[keep], fc[keep]] = np.clip(x[f, fr[keep], fc[keep]] + res, 0, 255)
+    return out
+
+
+def _merged_ids():
+    """Merged S1..S4 weights whose every real-layer weight is a distinct
+    positive id, built as MergedParams builds the int8 ones (zero taps of
+    the smaller branch padded in)."""
+    shapes = [(5, 5, 1, 64), (3, 3, 64, 32), (5, 5, 64, 16), (3, 3, 48, 16), (1, 1, 48, 32),
+              (3, 3, 48, 1)]
+    ids, start = [], 1
+    for s in shapes:
+        n = int(np.prod(s))
+        ids.append(np.arange(start, start + n, dtype=np.int64).reshape(s))
+        start += n
+
+    def pad(w, k):
+        r = (k - w.shape[0]) // 2
+        return np.pad(w, ((r, r), (r, r), (0, 0), (0, 0)))
+
+    merged = [ids[0], np.concatenate([pad(ids[1], 5), ids[2]], 3),
+              np.concatenate([ids[3], pad(ids[4], 3)], 3), ids[5]]
+    return merged, start - 1
+
+
+def test_split_operand_holds_every_weight_once():
+    """Every weight of the six real layers sits once in the image, and
+    every other byte (K and N padding, zero halves) is zero: 54,512
+    weights in SPLIT_BYTES = 56,320 bytes."""
+    merged, n_weights = _merged_ids()
+    img = FU.split_operand(merged)
+    assert img.size == FU.SPLIT_BYTES == 56320
+    held = np.sort(img[img != 0])
+    assert n_weights == 54512
+    assert (held == np.arange(1, n_weights + 1)).all()
+
+
+def test_split_operand_equals_fused_weights_split():
+    p = _params(37)
+    fw = FU.FusedWeights.from_engine(p)
+    want = FU.split_operand([w.numpy() for w in MergedParams.from_engine(p).w_i8])
+    assert fw.split.dtype == torch.int8 and (fw.split.numpy() == want).all()
+
+
+def test_kernel_source_mirrors_the_layout():
+    """csrc/qvrcnn_fused.cu states every layout constant it derives in a
+    static_assert; each equals the Python layout the emulation runs."""
+    src = open(os.path.join(REPO, "qcnn_gpu_tpu_torch", "csrc", "qvrcnn_fused.cu")).read()
+    got = dict(re.findall(r"static_assert\((\w+) == (\d+)", src))
+    want = {
+        "TH": TH, "TW": TW, "P0": P[0], "P1": P[1], "P2": P[2], "P3": P[3],
+        "MB1": FU.BLOCKS[0], "MB2": FU.BLOCKS[1], "MB3": FU.BLOCKS[2], "MB4": FU.BLOCKS[3],
+        "EXP": FU.EXPANDED, "PS1": PL[0], "PS2": PL[1], "PS3": PL[2],
+        "BUF_A_BYTES": BUF_A, "BUF_B_BYTES": BUF_B, "W_BYTES": FU.SPLIT_BYTES,
+        "N_S2": len(FU.SPLIT_CHUNKS[0]), "N_S3": len(FU.SPLIT_CHUNKS[1]),
+        "N_S4": len(FU.SPLIT_CHUNKS[2]),
+    }
+    assert {k: int(v) for k, v in got.items()} == want
+
+
+@pytest.mark.parametrize("model", [22, 37, "int4"])
+@pytest.mark.parametrize("n,h,w", [(1, 37, 53), (1, 13, 245)])
+def test_emulation_matches_plain_and_pallas(model, n, h, w):
+    from qcnn_gpu_tpu.ops.pallas_pipeline3 import build_pallas_forward3
+
+    from qcnn_gpu_tpu_torch.data.model_files import read_static_qfp_pc
+
+    p = _params(model)
+    fw = FU.FusedWeights.from_engine(p)
+    x = _frames(n, h, w, seed=h + w)
+    got = emulate(x, fw)
+    assert (got == FU.fused_forward_reference(torch.from_numpy(x), fw).numpy()).all()
+    jp = read_static_qfp_pc(INT4) if model == "int4" else None
+    if jp is None:
+        from qcnn_gpu_tpu.testing import synth_engine_params
+
+        jp = synth_engine_params(model)
+    assert (got == np.asarray(build_pallas_forward3(jp, th=8, interpret=True)(x))).all()
+
+
+@pytest.mark.parametrize("bounds", [(3, 33, 5, 47), (0, 30, 9, 53)])
+def test_emulation_with_frame_bounds(bounds):
+    fw = FU.FusedWeights.from_engine(_params(22))
+    x = _frames(2, 37, 53, seed=5)
+    want = FU.fused_forward_reference(torch.from_numpy(x), fw, *bounds).numpy()
+    assert (emulate(x, fw, bounds) == want).all()
+
+
+def test_emulation_tile_count_not_a_multiple_of_the_grid():
+    """2 frames x 3 x 2 tiles on a grid of 5 blocks: blocks walk 2 or 3
+    tiles each, across frames, through the same buffers."""
+    fw = FU.FusedWeights.from_engine(_params("int4"))
+    x = _frames(2, 3 * TH - 5, 2 * TW - 3, seed=9)
+    want = FU.fused_forward_reference(torch.from_numpy(x), fw).numpy()
+    assert (emulate(x, fw, grid=5) == want).all()
+
+
+def test_emulation_catches_a_read_of_a_stale_tail():
+    """Without each stage zeroing its region's tail, a later tile's MMAs
+    read bytes the previous tile left there: the emulation refuses."""
+    fw = FU.FusedWeights.from_engine(_params(37))
+    x = _frames(1, 37, 53, seed=1)
+    with pytest.raises(AssertionError, match="not written this tile"):
+        emulate(x, fw, grid=1, zero_tails=False)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_emulation():
+    """On a GPU: the CUDA kernel equals the emulation (and so the plain
+    version) on a frame of 2 x 2 tiles, batch 2, with frame bounds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from qcnn_gpu_tpu_torch.data.model_files import read_static_qfp_pc
+
+    p = EngineParams.from_arrays(read_static_qfp_pc(INT4))
+    x = np.random.default_rng(3).integers(0, 256, size=(2, 37, 53)).astype(np.uint8)
+    for bounds in ((), (2, 35, 4, 50)):
+        got = FU.fused_forward(torch.from_numpy(x).cuda(), FU.FusedWeights.from_engine(p, "cuda"),
+                               *bounds)
+        torch.cuda.synchronize()
+        want = emulate(x, FU.FusedWeights.from_engine(p), bounds)
+        assert (got.cpu().numpy() == want).all(), bounds
