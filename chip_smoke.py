@@ -8,10 +8,11 @@ a CUDA build of PyTorch. It imports torch, numpy and the port only. It
 builds the kernels from the four sources in qcnn_gpu_tpu_torch/csrc (one
 nvcc each, all at once) and then:
 
-  1-5  the fused kernel (generation 3: split branch GEMMs on `wgmma`,
-       weights resident in shared memory, a persistent grid of 24x40
-       tiles): its `ptxas` report (registers, spills; none allowed) and
-       shared memory, bit for bit against its plain version (phase 2's
+  1-5  the kernels' `ptxas` reports (registers, spills; none allowed in
+       the three network kernels) and shared memory; the fused kernel
+       (generation 3: split branch GEMMs on `wgmma`, weights resident in
+       shared memory, a persistent grid of 24x40 tiles) bit for bit
+       against its plain version (phase 2's
        cases: four models, 37x53 to 1080p, batch 8 at 1080p, frame bounds,
        and a tile count that is not a multiple of the grid), the plain
        version against the port's literal 6-conv reference graph (which
@@ -19,22 +20,24 @@ nvcc each, all at once) and then:
        (`qcnn_gpu_tpu_torch.cli run` on 16 synthetic 1920x1080 frames with
        the committed QP37 model) and kernel and plain version timed at
        1080p;
-  6    the frame-pair (generation 2) and literal-requant (generation 1)
-       kernels bit for bit against their plain versions on phase 2's cases,
-       odd batches included;
-  7    the literal kernel on the QP37 model with one BLU bound moved out of
-       the solver's saturation window, against its plain version and the
-       literal 6-conv graph; the folded-epilogue weights must refuse it;
+  6    the frame-pair (generation 2) and literal-requant
+       (generation 1) kernels, both on generation 3's design, bit for bit
+       against their plain versions on phase 2's cases, odd batches
+       included;
+  7    the literal kernel on two tables of the QP37 model outside the
+       solver's saturation window (C2_2's bound one step up; S1's raised by
+       half, whose activations pass 127 on random frames), against its plain
+       version and the literal 6-conv graph; the folded-epilogue weights
+       must refuse both;
   8    `cli run --impl kernel2` on phase 4's frames: the pair kernel's path,
        reconstruction equal to phase 4's;
   9    the matrix-rate probe's seven chain cases bit for bit against their
        plain version at grid 2, then its tool (`tools/mma_probe`) end to
        end, which also prints the `mma.sync` issue ceiling (a measurement
        with no TPU counterpart, so not in the kernels line);
-  10   generation 1's entry point (`tools/bench_kernels`), and v1/v2/v3
-       timed at 1080p batch 4 beside their plain versions, with v3's time
-       as a fraction of v2's (the design before generation 3's, in the
-       same call).
+  10   generation 1's entry point (`tools/bench_kernels`), then v3, v2
+       and v1 timed at 1080p batch 4 in turns (v3 v2 v1 v1 v2 v3), beside
+       their plain versions.
 
 Every path (phases 4, 8, 9 and 10) runs with the launch counts set to 0
 just before it and read just after; a kernel of the path that was not
@@ -178,15 +181,22 @@ def main() -> int:
         info = build.build_info[name]
         print(f"  {source}: {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                print("    ptxas: entry", entry.group(1))
+            elif "registers" in line or "spill" in line:
                 print("    ptxas:", line.strip())
-    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", build.build_info[KERNEL]["log"])
-    if not spills or any(int(n) for n in spills):
-        fail(f"ptxas reports spills (or no report) for {KERNEL}: {spills}")
+    for name in ("qvrcnn_fused", "qvrcnn_pair", "qvrcnn_literal"):
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", build.build_info[name]["log"])
+        if not spills or any(int(n) for n in spills):
+            fail(f"ptxas reports spills (or no report) for {name}: {spills}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     smem = build.library(KERNEL).qvrcnn_smem_bytes()
     print(f"{KERNEL}: 0 bytes spilled, {smem} bytes of dynamic shared memory per block, "
           f"{TILE_H}x{TILE_W} tiles, grid = min(tiles, {sms} SMs) blocks of 512 threads")
+    for name in ("qvrcnn_pair", "qvrcnn_literal"):
+        print(f"{name}: 0 bytes spilled, {build.library(name).qvrcnn_smem_bytes()} bytes of "
+              f"dynamic shared memory, {TILE_H}x{TILE_W} tiles")
     dev = torch.device("cuda")
 
     # ---- phase 2: kernel == plain version, bit for bit, on the card
@@ -321,10 +331,9 @@ def main() -> int:
         else:
             x = np.full(geo, 0 if kind == "zeros" else 255, np.uint8)
         xd = torch.from_numpy(x).to(dev)
-        for kname, kernel, plain, wts in (
-            ("qvrcnn_pair", pair_forward, pair_forward_reference, fws),
-            ("qvrcnn_literal", literal_residual, literal_residual_reference, lws),
-        ):
+        runs = [("qvrcnn_pair", pair_forward, pair_forward_reference, fws),
+                ("qvrcnn_literal", literal_residual, literal_residual_reference, lws)]
+        for kname, kernel, plain, wts in runs:
             got = kernel(xd, wts[name])
             torch.cuda.synchronize()
             want = plain(xd, wts[name])
@@ -336,35 +345,48 @@ def main() -> int:
             if err != 0:
                 fail(f"{kname} differs from its plain version: {name} {geo} {kind}")
 
-    # ---- phase 7: a table outside the saturation window: the literal
-    # kernel is exact there, the folded-epilogue weights refuse it
+    # ---- phase 7: tables outside the saturation window: the literal
+    # kernel is exact there, the folded-epilogue weights refuse them. C2_2's
+    # bound one output step up (smooth frames), and S1's bound raised by
+    # half (uniform random frames: kept values past 127, which only its
+    # uint8 activations and `.u8.s8` products hold)
     mul, shift = _normalized_table(p37)
     blu = list(p37.blu_q)
     blu[2] = int(blu[2]) + (1 << int(shift[2])) // int(mul[2]) + 1  # C2_2 one step up
     p_out = dataclasses.replace(p37, blu_q=blu)
-    try:
-        FusedWeights.from_engine(p_out, dev)
-    except ValueError as e:
-        print(f"FusedWeights refuses the moved table: {e}")
-    else:
-        fail("FusedWeights accepted a table outside the saturation window")
-    lw_out = LiteralWeights.from_engine(p_out, dev)
-    for geo in ((2, 240, 416), (1, H, W)):
-        xd = torch.from_numpy(frames(*geo, seed=5)).to(dev)
-        got = literal_residual(xd, lw_out)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int32) - literal_residual_reference(xd, lw_out).to(torch.int32))
-                  .abs().max())
-        max_errs["qvrcnn_literal"] = max(max_errs["qvrcnn_literal"], err)
-        print(f"qvrcnn_literal vs plain, C2_2 bound moved out of the window {geo}: "
-              f"max_abs_err={err}")
-        if err != 0:
-            fail("literal kernel differs from its plain version outside the window")
-    x = frames(1, 240, 416, seed=12)
-    restored = literal_forward(torch.from_numpy(x).to(dev), lw_out).cpu()
-    if not torch.equal(restored, make_forward(p_out, device="cpu", merged=False)(torch.from_numpy(x))):
-        fail("literal kernel differs from the literal reference graph outside the window")
-    print("literal kernel (CUDA) vs literal reference graph (CPU), moved table (1, 240, 416): equal")
+    blu = list(p37.blu_q)
+    blu[0] = 3 * int(blu[0]) // 2
+    p_half = dataclasses.replace(p37, blu_q=blu)
+    for label, table, kind in (("C2_2 bound one step up", p_out, "smooth"),
+                               ("S1 bound raised by half", p_half, "random")):
+        try:
+            FusedWeights.from_engine(table, dev)
+        except ValueError as e:
+            print(f"FusedWeights refuses the table with the {label}: {e}")
+        else:
+            fail(f"FusedWeights accepted a table outside the saturation window ({label})")
+        lw_out = LiteralWeights.from_engine(table, dev)
+        for geo in ((2, 240, 416), (1, H, W)):
+            if kind == "smooth":
+                x = frames(*geo, seed=5)
+            else:
+                x = np.random.default_rng(5).integers(0, 256, geo, dtype=np.uint8)
+            xd = torch.from_numpy(x).to(dev)
+            got = literal_residual(xd, lw_out)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int32) - literal_residual_reference(xd, lw_out)
+                       .to(torch.int32)).abs().max())
+            max_errs["qvrcnn_literal"] = max(max_errs["qvrcnn_literal"], err)
+            print(f"qvrcnn_literal vs plain, {label}, {kind} frames {geo}: max_abs_err={err}")
+            if err != 0:
+                fail(f"literal kernel differs from its plain version ({label})")
+        x = frames(1, 240, 416, seed=12)
+        restored = literal_forward(torch.from_numpy(x).to(dev), lw_out).cpu()
+        graph = make_forward(table, device="cpu", merged=False)(torch.from_numpy(x))
+        if not torch.equal(restored, graph):
+            fail(f"literal kernel differs from the literal reference graph ({label})")
+        print(f"literal kernel (CUDA) vs literal reference graph (CPU), {label} "
+              "(1, 240, 416): equal")
 
     # ---- phase 8: the frame-pair kernel's path, cli run --impl kernel2
     launched, recon2, run2 = cli_run("kernel2")
@@ -391,8 +413,8 @@ def main() -> int:
     if launches["mma_probe"] <= 0:
         fail("tools/mma_probe launched the probe kernel no time")
 
-    # ---- phase 10: generation 1's entry point, then v1/v2/v3 timed at
-    # 1080p batch 4 (the main path's batch) beside their plain versions
+    # ---- phase 10: generation 1's entry point, then v3, v2 and v1 timed
+    # at 1080p batch 4 (the main path's batch) beside their plain versions
     zero_counts()
     bench_kernels.main([])
     launches["qvrcnn_literal"] = counts()["qvrcnn_literal"]
@@ -402,24 +424,26 @@ def main() -> int:
     xd = torch.from_numpy(frames(b, H, W, seed=b)).to(dev)
     lw37 = lws["golden-QP37"]
     px = b * H * W
-    # v3 and v2 (the design before generation 3's) in turns v3 v2 v2 v3
-    turns = {"qvrcnn_fused": [], "qvrcnn_pair": []}
-    for kname in ("qvrcnn_fused", "qvrcnn_pair", "qvrcnn_pair", "qvrcnn_fused"):
-        kernel = fused_forward if kname == "qvrcnn_fused" else pair_forward
-        kernel(xd, fw37)
-        turns[kname].append(events_ms(lambda: kernel(xd, fw37), 20))
-    v3_ms, v2_ms = (sum(turns[k]) / 2 for k in ("qvrcnn_fused", "qvrcnn_pair"))
-    print(f"v3 / v2 at 1080p batch {b}, in turns v3 v2 v2 v3: {v3_ms / b:.4f} / {v2_ms / b:.4f} "
-          f"ms/frame = {v3_ms / v2_ms:.4f} {card}")
+    # v3, v2 and v1 in turns: v3 v2 v1 v1 v2 v3
+    runs = {"v3": lambda: fused_forward(xd, fw37), "v2": lambda: pair_forward(xd, fw37),
+            "v1": lambda: literal_residual(xd, lw37)}
+    turns = {k: [] for k in runs}
+    for k in runs:
+        runs[k]()
+    for k in list(runs) + list(runs)[::-1]:
+        turns[k].append(events_ms(runs[k], 20))
+    mean = {k: sum(v) / len(v) for k, v in turns.items()}
+    for k, v in turns.items():
+        print(f"{k} at 1080p batch {b}, in turns: {mean[k] / b:.4f} ms/frame "
+              f"({' / '.join(f'{t / b:.4f}' for t in v)}), {mean[k] / mean['v3']:.4f} of v3 {card}")
     pair_forward_reference(xd, fw37)
-    measured = {
-        "qvrcnn_fused": (v3_ms, times[b][1]),
-        "qvrcnn_pair": (v2_ms, events_ms(lambda: pair_forward_reference(xd, fw37), 2)),
-    }
-    literal_residual(xd, lw37)
     literal_residual_reference(xd, lw37)
-    measured["qvrcnn_literal"] = (events_ms(lambda: literal_residual(xd, lw37), 20),
-                                  events_ms(lambda: literal_residual_reference(xd, lw37), 2))
+    measured = {
+        "qvrcnn_fused": (mean["v3"], times[b][1]),
+        "qvrcnn_pair": (mean["v2"],
+                        events_ms(lambda: pair_forward_reference(xd, fw37), 2)),
+        "qvrcnn_literal": (mean["v1"], events_ms(lambda: literal_residual_reference(xd, lw37), 2)),
+    }
     for kname, (k_ms, p_ms) in measured.items():
         print(f"{kname} 1080p batch {b}: kernel {k_ms / b:.4f} ms/frame, plain "
               f"{p_ms / b:.4f} ms/frame {card}")

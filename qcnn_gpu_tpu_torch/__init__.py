@@ -10,10 +10,11 @@ Layering (bottom -> top):
   data/            static model files, YUV IO and PSNR, sequence manifests
   ops/requant.py   exact integer requant epilogues on tensors
   models/qvrcnn.py parameter containers + the float64-exact reference net
-  ops/fused.py     generation 3: one frame per block, folded epilogue
+  ops/fused.py     generation 3 (folded epilogue) and the split design's layout
   ops/pair.py      generation 2: frame pairs, folded epilogue
   ops/literal.py   generation 1: literal BLU chain, int16 residual
-  csrc/            hand-written CUDA C++ kernels (sm_90a)
+  csrc/            hand-written CUDA C++ kernels (sm_90a): generations 3, 2
+                   and 1 on one design (`wgmma`, hopper_wgmma.cuh)
   ops/build.py     nvcc build of csrc/ into ctypes-loaded libraries
   engine/          Engine (program cache, batched restore) + metrics log
   cli.py           `run` and `sweep` entry points

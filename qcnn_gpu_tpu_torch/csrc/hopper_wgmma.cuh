@@ -1,4 +1,5 @@
-// Hopper primitives of the generation-3 kernel (qvrcnn_fused.cu): int8
+// Hopper primitives of the split-design kernels (qvrcnn_fused.cu, and
+// through qvrcnn_split.cuh qvrcnn_pair.cu and qvrcnn_literal.cu): int8
 // `wgmma` with both operands in shared memory, its descriptors and
 // fences, and the asynchronous copies and proxy fence around it.
 //
@@ -134,6 +135,43 @@ __device__ __forceinline__ void mma_n64(int (&d)[L], uint64_t a, uint64_t b) {
         "+r"(d[O + 20]), "+r"(d[O + 21]), "+r"(d[O + 22]), "+r"(d[O + 23]),
         "+r"(d[O + 24]), "+r"(d[O + 25]), "+r"(d[O + 26]), "+r"(d[O + 27]),
         "+r"(d[O + 28]), "+r"(d[O + 29]), "+r"(d[O + 30]), "+r"(d[O + 31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// The N = 16 and N = 48 products with A read as unsigned bytes
+// (.s32.u8.s8): activations 0..255, as generation 1 keeps them (a table
+// outside the solver's saturation window requantizes above 127).
+template <int O, int L>
+__device__ __forceinline__ void mma_u8_n16(int (&d)[L], uint64_t a, uint64_t b) {
+  static_assert(O + 8 <= L, "accumulator range");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.u8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p;\n}\n"
+      :
+        "+r"(d[O + 0]), "+r"(d[O + 1]), "+r"(d[O + 2]), "+r"(d[O + 3]),
+        "+r"(d[O + 4]), "+r"(d[O + 5]), "+r"(d[O + 6]), "+r"(d[O + 7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <int O, int L>
+__device__ __forceinline__ void mma_u8_n48(int (&d)[L], uint64_t a, uint64_t b) {
+  static_assert(O + 24 <= L, "accumulator range");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k32.s32.u8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p;\n}\n"
+      :
+        "+r"(d[O + 0]), "+r"(d[O + 1]), "+r"(d[O + 2]), "+r"(d[O + 3]),
+        "+r"(d[O + 4]), "+r"(d[O + 5]), "+r"(d[O + 6]), "+r"(d[O + 7]),
+        "+r"(d[O + 8]), "+r"(d[O + 9]), "+r"(d[O + 10]), "+r"(d[O + 11]),
+        "+r"(d[O + 12]), "+r"(d[O + 13]), "+r"(d[O + 14]), "+r"(d[O + 15]),
+        "+r"(d[O + 16]), "+r"(d[O + 17]), "+r"(d[O + 18]), "+r"(d[O + 19]),
+        "+r"(d[O + 20]), "+r"(d[O + 21]), "+r"(d[O + 22]), "+r"(d[O + 23])
       : "l"(a), "l"(b), "r"(1));
 }
 

@@ -7,14 +7,15 @@ launch of the hand-written CUDA kernel `csrc/qvrcnn_fused.cu`;
 function, with the same folded epilogue and frame-bounds masking, that
 the kernel is held against bit for bit.
 
-The kernel's operand layout is described here, in Python, so that the
-tests can emulate it: `SPLIT_CHUNKS` lists, stage by stage, the 32-deep
-K chunks of its `wgmma` GEMMs (which channel planes and taps each chunk's
-two halves read, and which output channels it writes), `split_operand`
-packs the weights into the shared-memory image those chunks read, and
-`TILE_H`, `TILE_W`, `PITCH`, `ROWS`, `BLOCKS`, `EXPANDED` and `PLANE` give
-the tile and its activation regions.
-`csrc/qvrcnn_fused.cu` mirrors every one of them.
+The kernels' operand layout (generation 3's, which generations 2 and 1
+share) is described here, in Python, so that the tests can emulate it:
+`SPLIT_CHUNKS` lists, stage by stage, the 32-deep K chunks of its `wgmma`
+GEMMs (which channel planes and taps each chunk's two halves read, and
+which output channels it writes), `split_operand` packs the weights into
+the shared-memory image those chunks read, and `layout(th, tw)` gives a
+tile's activation regions (`TILE_H`, `TILE_W`, `PITCH`, `ROWS`, `BLOCKS`,
+`EXPANDED` and `PLANE` are generation 3's). `csrc/qvrcnn_fused.cu` and
+`csrc/qvrcnn_split.cuh` mirror every one of them.
 
 Frame bounds `[row_lo, row_hi) x [col_lo, col_hi)` (default the whole
 frame) stand in for the JAX kernel's `row_bounds`/`col_bounds`
@@ -46,52 +47,82 @@ KERNEL = "qvrcnn_fused"
 MAX_TILES_PER_LAUNCH = 2**31 - 1  # the kernel counts tiles in an int
 
 
-def mma_b_fragments(w_hwio: np.ndarray) -> np.ndarray:
-    """int8 HWIO [k, k, Cin, Cout] -> the kernel's B operand: flat int8 in
-    `mma.m16n8k32` fragment order [kc, nt, lane, 8].
-
-    The stage GEMM is W[kk, n] = w[dy, dx, ch, n] with kk = (dy*k + dx)*Cin
-    + ch (the HWIO flattening), zero-padded to K = 32*KC rows and N = 8*NT
-    columns. Lane (g = lane>>2, t = lane&3) of k-chunk kc, n-tile nt holds
-    b0 = W[kc*32 + t*4 + 0..3, nt*8 + g] and b1 = the same at +16 rows."""
-    k, _, cin, cout = w_hwio.shape
-    kk = k * k * cin
-    kc, nt = -(-kk // 32), -(-cout // 8)
-    wp = np.zeros((kc * 32, nt * 8), np.int8)
-    wp[:kk, :cout] = np.asarray(w_hwio, np.int8).reshape(kk, cout)
-    # [kc, h, t, j, nt, g] -> [kc, nt, g, t, h, j]
-    frag = wp.reshape(kc, 2, 4, 4, nt, 8).transpose(0, 4, 5, 2, 1, 3)
-    return np.ascontiguousarray(frag).reshape(-1)
-
-
-# ---- generation 3 (csrc/qvrcnn_fused.cu): tile, regions, GEMM chunks
+# ---- the split design (csrc/qvrcnn_fused.cu, and csrc/qvrcnn_split.cuh for
+# generations 2 and 1): tile, regions, GEMM chunks
 #
-# A block computes TILE_H x TILE_W output pixels. Its regions, each one
-# row pitch wide: the input window (x-128, 6-px halo), S1 (64 channels),
-# S2 = Conc1 (48) and S3 = Conc2 (48). S2-S4 compute their outputs on
-# their INPUT region's pitch (flat offsets: output position q reads input
-# position q + dy * pitch + dx), in 64-position blocks; the epilogue drops
-# the columns past the output region's width and the positions past its
-# last row, and stores the rest on the output region's own pitch. S1
-# reads an expanded window built on S1's own pitch, so it drops nothing.
-# Activations are channel-block-major: plane b holds channels 16b..16b+15
-# of every position, 16 bytes per position, PLANE[i] positions per plane
-# (the region plus a tail that the last block's shifted reads reach).
+# A group of warpgroups computes th x tw output pixels. Its regions, each
+# one row pitch wide: the input window (x-128, 6-px halo), S1 (64
+# channels), S2 = Conc1 (48) and S3 = Conc2 (48). S2-S4 compute their
+# outputs on their INPUT region's pitch (flat offsets: output position q
+# reads input position q + dy * pitch + dx), in 64-position blocks; the
+# epilogue drops the columns past the output region's width and the
+# positions past its last row, and stores the rest on the output region's
+# own pitch. S1 reads an expanded window built on S1's own pitch, so it
+# drops nothing. Activations are channel-block-major: plane b holds
+# channels 16b..16b+15 of every position, 16 bytes per position, plane[i]
+# positions per plane (the region plus a tail that the last block's
+# shifted reads reach).
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """A th x tw tile's regions (csrc/qvrcnn_split.cuh `Geometry`): row
+    pitches and rows of the window, S1, S2, S3; the 64-position blocks of
+    S1..S4; S1's expanded positions; the plane sizes of S1..S3; and the
+    bytes of the raw window and of buffers A (S1, then S3) and B (the
+    expanded window, then S2, then S4's int32 shares)."""
+
+    th: int
+    tw: int
+    pitch: Tuple[int, int, int, int]
+    rows: Tuple[int, int, int, int]
+    blocks: Tuple[int, int, int, int]
+    expanded: int
+    plane: Tuple[int, int, int]
+
+    @property
+    def raw(self) -> int:
+        return self.rows[0] * self.pitch[0]
+
+    @property
+    def buf_a(self) -> int:
+        return max(4 * self.plane[0], 3 * self.plane[2]) * 16
+
+    @property
+    def buf_b(self) -> int:
+        return max(3 * self.plane[1], self.expanded) * 16
+
+    @property
+    def bytes(self) -> int:
+        """One tile's buffers: the raw window (to 16 bytes), A and B."""
+        return -(-self.raw // 16) * 16 + self.buf_a + self.buf_b
+
+    @property
+    def share_stride(self) -> int:
+        return self.blocks[3] * 64 + 4
+
+
+def layout(th: int, tw: int) -> Layout:
+    pitch = (tw + 12, tw + 8, tw + 4, tw + 2)  # window, S1, S2, S3
+    rows = (th + 12, th + 8, th + 4, th + 2)
+    blocks = (
+        -(-rows[1] * pitch[1] // 64),  # S1 on its own pitch (its A operand is built on it)
+        -(-rows[2] * pitch[1] // 64),
+        -(-rows[3] * pitch[2] // 64),
+        -(-rows[3] * pitch[3] // 64),  # S4 over the whole S3 region (tap-major, below)
+    )
+    plane = (
+        max(rows[1] * pitch[1], blocks[1] * 64 + 4 * pitch[1] + 4),  # S2 reads 5x5
+        max(rows[2] * pitch[2], blocks[2] * 64 + 2 * pitch[2] + 3),  # S3 reads 3x3 (+1)
+        max(rows[3] * pitch[3], blocks[3] * 64 + 1),  # S4 reads its blocks (+1)
+    )
+    return Layout(th, tw, pitch, rows, blocks, blocks[0] * 64 + 3 * pitch[1], plane)
+
+
+# generation 3's tile (and generation 1's): 24 divides 1080, 40 divides 1920
 TILE_H, TILE_W = 24, 40
-PITCH = (TILE_W + 12, TILE_W + 8, TILE_W + 4, TILE_W + 2)  # window, S1, S2, S3
-ROWS = (TILE_H + 12, TILE_H + 8, TILE_H + 4, TILE_H + 2)
-BLOCKS = (  # 64-position M blocks of S1..S4
-    -(-ROWS[1] * PITCH[1] // 64),  # S1 on its own pitch (its A operand is built on it)
-    -(-ROWS[2] * PITCH[1] // 64),
-    -(-ROWS[3] * PITCH[2] // 64),
-    -(-ROWS[3] * PITCH[3] // 64),  # S4 over the whole S3 region (tap-major, below)
-)
-EXPANDED = BLOCKS[0] * 64 + 3 * PITCH[1]  # positions of S1's A operand
-PLANE = (
-    max(ROWS[1] * PITCH[1], BLOCKS[1] * 64 + 4 * PITCH[1] + 4),  # S1: S2 reads 5x5
-    max(ROWS[2] * PITCH[2], BLOCKS[2] * 64 + 2 * PITCH[2] + 3),  # S2: S3 reads 3x3 (+1)
-    max(ROWS[3] * PITCH[3], BLOCKS[3] * 64 + 1),  # S3: S4 reads its blocks (+1)
-)
+_L3 = layout(TILE_H, TILE_W)
+PITCH, ROWS, BLOCKS, EXPANDED, PLANE = _L3.pitch, _L3.rows, _L3.blocks, _L3.expanded, _L3.plane
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,8 +241,7 @@ class FusedWeights:
     the fold would differ from the literal BLU."""
 
     w: Tuple[torch.Tensor, ...]  # 4 merged int8 HWIO (plain version)
-    frag: Tuple[torch.Tensor, ...]  # 4 int8 mma.sync B operands (generation 2)
-    split: torch.Tensor  # int8 [SPLIT_BYTES]: generation 3's weight image
+    split: torch.Tensor  # int8 [SPLIT_BYTES]: the kernels' weight image
     bias: Tuple[torch.Tensor, ...]  # S1..S3 folded b' [C], S4 raw b [1], int32
     bound: Tuple[torch.Tensor, ...]  # S1..S3 B [C], int32
     mul: Tuple[torch.Tensor, ...]
@@ -255,7 +285,6 @@ class FusedWeights:
         as_t = lambda a, dt: torch.as_tensor(np.asarray(a, dt), device=device)  # noqa: E731
         return cls(
             w=tuple(as_t(x, np.int8) for x in w),
-            frag=tuple(as_t(mma_b_fragments(x), np.int8) for x in w),
             split=as_t(split_operand(w), np.int8),
             bias=tuple(as_t(x, np.int32) for x in bias),
             bound=tuple(as_t(x, np.int32) for x in bound),

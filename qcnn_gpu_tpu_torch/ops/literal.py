@@ -1,10 +1,11 @@
 """The literal-requant kernel (generation 1): weights, wrapper and plain version.
 
 Counterpart of `qcnn_gpu_tpu/ops/pallas_pipeline.py`. `literal_residual`
-runs the branch-merged network on uint8 frames in one launch of the
-hand-written CUDA kernel `csrc/qvrcnn_literal.cu` and returns the S4
-residual as int16 [B, H, W], clamped to +-255; S1-S3 end in the literal
-BLU chain (`_requant_vec`, pallas_pipeline.py:117-119)
+runs the network on uint8 frames in one launch of the hand-written CUDA
+kernel `csrc/qvrcnn_literal.cu` (generation 3's split design, 24x40 tiles,
+on `csrc/qvrcnn_split.cuh`) and returns the S4 residual as int16 [B, H,
+W], clamped to +-255; S1-S3 end in the literal BLU chain (`_requant_vec`,
+pallas_pipeline.py:117-119)
 
     u > blu_q -> 127;  u < 0 -> 0;  else ((u + bias_pre) * mul) >> shift
 
@@ -28,21 +29,22 @@ import torch
 from qcnn_gpu_tpu_torch.models.engine_params import EngineParams
 from qcnn_gpu_tpu_torch.models.qvrcnn import MergedParams, conv_exact
 from qcnn_gpu_tpu_torch.ops import build
-from qcnn_gpu_tpu_torch.ops.fused import check_frames, mma_b_fragments
+from qcnn_gpu_tpu_torch.ops.fused import TILE_H, TILE_W, check_frames, split_operand
 from qcnn_gpu_tpu_torch.ops.requant import THRESHOLD, apply_residual_u8, final_residual_i32
 
 KERNEL = "qvrcnn_literal"
-MAX_FRAMES_PER_LAUNCH = 65535  # gridDim.z
+MAX_TILES_PER_LAUNCH = 2**31 - 1  # the kernel counts tiles in an int
 RESIDUAL_CLAMP = 255
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 @dataclasses.dataclass(frozen=True)
 class LiteralWeights:
     """Everything the literal kernel reads, on one device (counterpart of
-    PackedWeights, pallas_pipeline.py:52-114): the merged weights, and per
-    S1..S3 channel the unfolded (b, blu_q, mul, bias_pre, shift); S4 keeps
-    (b4, mul4, shift4).
+    PackedWeights, pallas_pipeline.py:52-114): the merged weights and
+    their split image (`ops/fused.split_operand`, the kernel's B operand),
+    and per S1..S3 channel the unfolded (b, blu_q, mul, bias_pre, shift);
+    S4 keeps (b4, mul4, shift4).
 
     `from_engine` does not check the saturation window. It raises
     ValueError where the TPU kernel asserts mul4 <= 127
@@ -51,7 +53,7 @@ class LiteralWeights:
     activations as unsigned bytes."""
 
     w: Tuple[torch.Tensor, ...]  # 4 merged int8 HWIO (plain version)
-    frag: Tuple[torch.Tensor, ...]  # 4 int8 B operands in fragment order
+    split: torch.Tensor  # int8 [SPLIT_BYTES]: the kernel's weight image
     bias: Tuple[torch.Tensor, ...]  # 4 raw int32 biases (S4: [1])
     blu_q: Tuple[torch.Tensor, ...]  # S1..S3, int32 [C]
     mul: Tuple[torch.Tensor, ...]
@@ -85,7 +87,7 @@ class LiteralWeights:
         w = [x.numpy() for x in mp.w_i8]
         return cls(
             w=tuple(as_t(x, np.int8) for x in w),
-            frag=tuple(as_t(mma_b_fragments(x), np.int8) for x in w),
+            split=as_t(split_operand(w), np.int8),
             bias=tuple(as_t(x.numpy(), np.int32) for x in mp.b_i32),
             blu_q=tuple(as_t(r[1], np.int32) for r in rows),
             mul=tuple(as_t(r[2], np.int32) for r in rows),
@@ -127,8 +129,9 @@ def literal_residual(x_u8: torch.Tensor, lw: LiteralWeights) -> torch.Tensor:
     if x_u8.device.type != "cuda":
         raise ValueError(f"no kernel for device {x_u8.device}")
     b, h, w = x_u8.shape
-    if b > MAX_FRAMES_PER_LAUNCH:
-        raise ValueError(f"at most {MAX_FRAMES_PER_LAUNCH} frames per launch, got {b}")
+    tiles = b * -(-h // TILE_H) * -(-w // TILE_W)
+    if tiles > MAX_TILES_PER_LAUNCH:
+        raise ValueError(f"at most {MAX_TILES_PER_LAUNCH} tiles per launch, got {tiles}")
     out = torch.empty(x_u8.shape, dtype=torch.int16, device=x_u8.device)
     if x_u8.numel() == 0:
         return out
@@ -136,7 +139,7 @@ def literal_residual(x_u8: torch.Tensor, lw: LiteralWeights) -> torch.Tensor:
     with torch.cuda.device(x_u8.device):
         err = fn(
             x_u8.data_ptr(), out.data_ptr(),
-            *(t.data_ptr() for t in lw.frag), lw.vec.data_ptr(),
+            lw.split.data_ptr(), lw.vec.data_ptr(),
             b, h, w, lw.b4, lw.mul4, lw.shift4, build.stream_of(x_u8),
         )
     build.check(KERNEL, err)

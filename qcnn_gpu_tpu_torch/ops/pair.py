@@ -2,12 +2,13 @@
 
 Counterpart of `qcnn_gpu_tpu/ops/pallas_pipeline2.py`. `pair_forward` runs
 the whole QVRCNN (S1..S4 + residual add) on uint8 frames in one launch of
-the hand-written CUDA kernel `csrc/qvrcnn_pair.cu`, one block per (frame
-pair, 16x16 tile): every weight fragment it loads feeds both frames. It
+the hand-written CUDA kernel `csrc/qvrcnn_pair.cu`, generation 3's split
+design (`csrc/qvrcnn_split.cuh`) on frame pairs: a persistent block
+computes the 24x40 tile of one frame of a pair, then of the other. It
 computes the function of the one-frame kernel (ops/fused.py) with the
 same folded epilogue, so it takes the same `FusedWeights`, which refuse a
-table outside the solver's saturation window. Odd batches run their last
-frame alone. The whole frame is valid (no frame bounds), as in the TPU
+table outside the solver's saturation window. An odd batch's last frame
+runs alone. The whole frame is valid (no frame bounds), as in the TPU
 version.
 """
 
@@ -18,16 +19,22 @@ import ctypes
 import torch
 
 from qcnn_gpu_tpu_torch.ops import build
-from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, check_frames, fused_forward_reference
+from qcnn_gpu_tpu_torch.ops.fused import (
+    TILE_H,
+    TILE_W,
+    FusedWeights,
+    check_frames,
+    fused_forward_reference,
+)
 
 KERNEL = "qvrcnn_pair"
-MAX_FRAMES_PER_LAUNCH = 2 * 65535  # gridDim.z pairs
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+MAX_ITEMS_PER_LAUNCH = 2**31 - 1  # the kernel counts (pair, tile) items in an int
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def pair_forward_reference(x_u8: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
     """Plain PyTorch version: uint8 [B, H, W] -> uint8. Pairing frames
-    changes which loads are shared, not the arithmetic, so this is the
+    changes which tiles run together, not the arithmetic, so this is the
     one-frame plain version over the whole frame."""
     check_frames(x_u8, fw.vec.device)
     return fused_forward_reference(x_u8, fw)
@@ -45,16 +52,16 @@ def pair_forward(x_u8: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
     if x_u8.device.type != "cuda":
         raise ValueError(f"no kernel for device {x_u8.device}")
     b, h, w = x_u8.shape
-    if b > MAX_FRAMES_PER_LAUNCH:
-        raise ValueError(f"at most {MAX_FRAMES_PER_LAUNCH} frames per launch, got {b}")
+    items = -(-b // 2) * -(-h // TILE_H) * -(-w // TILE_W)
+    if items > MAX_ITEMS_PER_LAUNCH:
+        raise ValueError(f"at most {MAX_ITEMS_PER_LAUNCH} work items per launch, got {items}")
     out = torch.empty_like(x_u8)
     if x_u8.numel() == 0:
         return out
     fn = build.function(KERNEL, "qvrcnn_pair_forward", _ARGTYPES)
     with torch.cuda.device(x_u8.device):
         err = fn(
-            x_u8.data_ptr(), out.data_ptr(),
-            *(t.data_ptr() for t in fw.frag), fw.vec.data_ptr(),
+            x_u8.data_ptr(), out.data_ptr(), fw.split.data_ptr(), fw.vec.data_ptr(),
             b, h, w, fw.b4, fw.mul4, fw.shift4, build.stream_of(x_u8),
         )
     build.check(KERNEL, err)

@@ -1,19 +1,20 @@
 """Generation 3's operand layout (qcnn_gpu_tpu_torch/ops/fused.py and
 csrc/qvrcnn_fused.cu), emulated in numpy int64 on the CPU.
 
-`emulate` runs the kernel's arithmetic as the kernel lays it out: a
-persistent block walking its tiles with one set of shared-memory buffers;
-the raw window, the expanded S1 operand, the channel-block-major
-activation planes with their tails, S3 written over S1's buffer and the
-expanded window under S2's; each stage's `wgmma` chunks read through
-descriptors (start, leading offset between the two K halves, stride 128
-between 8-position core matrices) from the weight image `split_operand`
-packs; outputs computed on the input region's pitch, wrapped columns and
-rows past the region dropped, frame bounds masking every stage. Every
-byte a chunk reads must have been written during the same tile; the
-emulation raises otherwise. It is held bit-equal to the plain version
-`fused_forward_reference` and to the Pallas TPU kernel
-`build_pallas_forward3` (interpret mode). Tolerance: 0 everywhere.
+`emulate` (tests/torch_split_emulation.py) runs the kernel's arithmetic
+as the kernel lays it out: a persistent block walking its tiles with one
+set of shared-memory buffers; the raw window, the expanded S1 operand,
+the channel-block-major activation planes with their tails, S3 written
+over S1's buffer and the expanded window under S2's; each stage's
+`wgmma` chunks read through descriptors (start, leading offset between
+the two K halves, stride 128 between 8-position core matrices) from the
+weight image `split_operand` packs; outputs computed on the input
+region's pitch, wrapped columns and rows past the region dropped, frame
+bounds masking every stage. Every byte a chunk reads must have been
+written during the same tile; the emulation raises otherwise. It is held
+bit-equal to the plain version `fused_forward_reference` and to the
+Pallas TPU kernel `build_pallas_forward3` (interpret mode). Tolerance: 0
+everywhere.
 """
 
 import os
@@ -27,12 +28,11 @@ from qcnn_gpu_tpu_torch.models.engine_params import EngineParams
 from qcnn_gpu_tpu_torch.models.qvrcnn import MergedParams
 from qcnn_gpu_tpu_torch.ops import fused as FU
 
+import torch_split_emulation as SE
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INT4 = os.path.join(REPO, "assets", "golden", "model_q22_int4.data")
 TH, TW, P, PL = FU.TILE_H, FU.TILE_W, FU.PITCH, FU.PLANE
-RAW = FU.ROWS[0] * P[0]
-BUF_A = max(4 * PL[0], 3 * PL[2]) * 16  # S1, then S3
-BUF_B = max(3 * PL[1], FU.EXPANDED) * 16  # expanded window, then S2
 
 
 def _params(model):
@@ -51,123 +51,10 @@ def _frames(n, h, w, seed):
     return synth_frames(n, h, w, seed=seed)
 
 
-class Smem:
-    """A shared-memory buffer with a mask of the bytes written this tile."""
-
-    def __init__(self, nbytes):
-        self.v = np.zeros(nbytes, np.int64)
-        self.ok = np.zeros(nbytes, bool)
-
-    def write(self, idx, vals):
-        self.v[idx] = vals
-        self.ok[idx] = True
-
-    def read(self, idx):
-        if not self.ok[idx].all():
-            raise AssertionError("an MMA reads a shared-memory byte not written this tile")
-        return self.v[idx]
-
-
-def _gemm(buf, plane_bytes, pitch, blocks, chunks, offsets, w_img, n_out):
-    """One stage's chunks over all its 64-position blocks -> int64 acc."""
-    q = np.arange(blocks * 64)
-    acc = np.zeros((q.size, n_out), np.int64)
-    k = np.arange(32)
-    for c, boff in zip(chunks, offsets):
-        (p0, dy0, dx0), h1 = c.halves
-        start = q * 16 + p0 * plane_bytes + (dy0 * pitch + dx0) * 16
-        if h1 is None:
-            lbo = 16
-        else:
-            lbo = (h1[0] - p0) * plane_bytes + ((h1[1] - dy0) * pitch + h1[2] - dx0) * 16
-        assert lbo > 0
-        a = buf.read(start[:, None] + (k // 16) * lbo + k % 16)  # row m at start + m*16
-        n = np.arange(c.n)
-        b = w_img[boff + (n[:, None] // 8) * 256 + (k // 16) * 128 + (n[:, None] % 8) * 16
-                  + k % 16]
-        acc[:, c.col0:c.col0 + c.n] += a @ b.T
-    return acc
-
-
-def _requant(acc, vec, cout):
-    b, bound, mul, shift = (vec[i * cout:(i + 1) * cout] for i in range(4))
-    u = np.clip(acc + b, 0, bound)
-    return np.minimum((u * mul) >> shift, 127)
-
-
 def emulate(x, fw, bounds=(), grid=3, zero_tails=True):
-    """The kernel's arithmetic on uint8 frames [B, H, W] -> uint8."""
-    nb, h, w = x.shape
-    lo_r, hi_r, lo_c, hi_c = FU._bounds(h, w, *(bounds or (0, None, 0, None)))
-    lo_r, hi_r, lo_c, hi_c = max(lo_r, 0), min(hi_r, h), max(lo_c, 0), min(hi_c, w)
-    w_img = fw.split.numpy().astype(np.int64)
-    vec = fw.vec.numpy().astype(np.int64)
-    vecs = (vec[:256], vec[256:448], vec[448:640])
-    out = np.zeros_like(x)
-    ty_n, tx_n = -(-h // TH), -(-w // TW)
-    total = nb * ty_n * tx_n
-    offs = FU.SPLIT_OFFSETS
-    n2, n3 = len(FU.SPLIT_CHUNKS[0]), len(FU.SPLIT_CHUNKS[1])
-    stage_offs = (offs[1:1 + n2], offs[1 + n2:1 + n2 + n3], offs[1 + n2 + n3:-1])
-    for blk in range(min(grid, total)):
-        bufs = {"A": Smem(BUF_A), "B": Smem(BUF_B)}
-        for tile in range(blk, total, grid):
-            f, rem = divmod(tile, ty_n * tx_n)
-            ty0, tx0 = (rem // tx_n) * TH, (rem % tx_n) * TW
-            for b in bufs.values():
-                b.ok[:] = False
-            # raw window: x - 128 inside the bounds, 0 outside
-            i = np.arange(RAW)
-            r, c = ty0 - 6 + i // P[0], tx0 - 6 + i % P[0]
-            inside = (r >= lo_r) & (r < hi_r) & (c >= lo_c) & (c < hi_c)
-            raw = np.where(inside, x[f, np.clip(r, 0, h - 1), np.clip(c, 0, w - 1)]
-                           .astype(np.int64) - 128, 0)
-            # expanded window on S1's pitch: position (r, c), byte 5*i+j =
-            # window (r + i, c + j)
-            e, j = np.arange(FU.EXPANDED)[:, None], np.arange(16)[None]
-            idx = (e // P[1] + j // 5) * P[0] + e % P[1] + j % 5
-            val = np.where((j < 15) & (idx < RAW), raw[np.minimum(idx, RAW - 1)], 0)
-            bufs["B"].write((e * 16 + j).ravel(), val.ravel())
-            # S1: one chunk, halves 3 window rows apart
-            s1 = FU.Chunk(((0, 0, 0), (0, 3, 0)), 0, FU.S1_N)
-            acc = _gemm(bufs["B"], 0, P[1], FU.BLOCKS[0], [s1], [0], w_img, 64)
-            src = "B"
-            for s in range(3):
-                cout = 64 if s == 0 else 48
-                dst, plane = ("A", PL[0]) if s == 0 else (("B", PL[1]) if s == 1 else ("A", PL[2]))
-                if s > 0:
-                    acc = _gemm(bufs[src], PL[s - 1] * 16, P[s], FU.BLOCKS[s],
-                                FU.SPLIT_CHUNKS[s - 1], stage_offs[s - 1], w_img, 48)
-                rows_out, halo = FU.ROWS[s + 1], (FU.ROWS[s + 1] - TH) // 2
-                q = np.arange(acc.shape[0])
-                pin = P[1] if s == 0 else P[s]  # S1 runs on its own pitch
-                rr, cc = q // pin, q % pin
-                keep = (rr < rows_out) & (cc < P[s + 1])
-                fr, fc = ty0 - halo + rr, tx0 - halo + cc
-                ok = (fr >= lo_r) & (fr < hi_r) & (fc >= lo_c) & (fc < hi_c)
-                v = np.where(ok[:, None], _requant(acc, vecs[s], cout), 0)[keep]
-                pos = (rr * P[s + 1] + cc)[keep]
-                n = np.arange(cout)
-                addr = (n // 16) * plane * 16 + pos[:, None] * 16 + n % 16
-                if zero_tails:
-                    t = np.arange(rows_out * P[s + 1] * 16, plane * 16)
-                    for pl in range(cout // 16):
-                        bufs[dst].write(pl * plane * 16 + t, 0)
-                bufs[dst].write(addr.ravel(), v.ravel())
-                src = dst
-            # S4, tap-major: acc[p, t] is tap t's share of the output at
-            # p - shift(t); then the final requant and the residual add
-            acc = _gemm(bufs["A"], PL[2] * 16, P[3], FU.BLOCKS[3], FU.SPLIT_CHUNKS[2],
-                        stage_offs[2], w_img, 16)
-            o = np.arange(TH * TW)
-            q = (o // TW) * P[3] + o % TW
-            s4 = sum(acc[q + dy * P[3] + dx, t] for t, (dy, dx) in enumerate(FU.S4_TAPS))
-            fr, fc = ty0 + o // TW, tx0 + o % TW
-            keep = (fr < h) & (fc < w)
-            u = s4[keep] + fw.b4
-            res = (u * fw.mul4 + (1 << (fw.shift4 - 1))) >> fw.shift4
-            out[f, fr[keep], fc[keep]] = np.clip(x[f, fr[keep], fc[keep]] + res, 0, 255)
-    return out
+    """The kernel's arithmetic on uint8 frames [B, H, W] -> uint8
+    (tests/torch_split_emulation.py, generation 3's design)."""
+    return SE.emulate(x, fw, SE.GEN3, bounds, grid, zero_tails=zero_tails)
 
 
 def _merged_ids():
@@ -219,7 +106,8 @@ def test_kernel_source_mirrors_the_layout():
         "TH": TH, "TW": TW, "P0": P[0], "P1": P[1], "P2": P[2], "P3": P[3],
         "MB1": FU.BLOCKS[0], "MB2": FU.BLOCKS[1], "MB3": FU.BLOCKS[2], "MB4": FU.BLOCKS[3],
         "EXP": FU.EXPANDED, "PS1": PL[0], "PS2": PL[1], "PS3": PL[2],
-        "BUF_A_BYTES": BUF_A, "BUF_B_BYTES": BUF_B, "W_BYTES": FU.SPLIT_BYTES,
+        "BUF_A_BYTES": FU.layout(TH, TW).buf_a, "BUF_B_BYTES": FU.layout(TH, TW).buf_b,
+        "W_BYTES": FU.SPLIT_BYTES,
         "N_S2": len(FU.SPLIT_CHUNKS[0]), "N_S3": len(FU.SPLIT_CHUNKS[1]),
         "N_S4": len(FU.SPLIT_CHUNKS[2]),
     }

@@ -171,15 +171,30 @@ def test_cpu_tensor_takes_the_plain_version():
         LI.literal_residual(x.to(torch.int32), lw)
 
 
+def _off_window_tables(p):
+    """Two tables outside the saturation window, from the port's own
+    containers (no JAX): C2_2's bound one output step up, and S1's bound
+    raised by half (kept values past 127 on random frames)."""
+    mul, shift = (np.asarray(v[2], np.int64) for v in Q._normalized_table(p))
+    up = list(p.blu_q)
+    up[2] = np.asarray(up[2], np.int64) + (np.int64(1) << shift) // mul + 1
+    half = list(p.blu_q)
+    half[0] = np.asarray(half[0], np.int64) * 3 // 2
+    return dataclasses.replace(p, blu_q=up), dataclasses.replace(p, blu_q=half)
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
+    """The committed INT4 model and two tables outside the window, odd
+    batch included."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     p = EngineParams.from_arrays(read_static_qfp_pc(INT4))
-    lw = LI.LiteralWeights.from_engine(p, "cuda")
     rng = np.random.default_rng(7)
-    for shape in ((1, 37, 53), (2, 13, 245), (3, 40, 50)):
-        x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).cuda()
-        got = LI.literal_residual(x, lw)
-        torch.cuda.synchronize()
-        assert torch.equal(got, LI.literal_residual_reference(x, lw)), shape
+    for table in (p, *_off_window_tables(p)):
+        lw = LI.LiteralWeights.from_engine(table, "cuda")
+        for shape in ((1, 37, 53), (2, 13, 245), (3, 40, 50)):
+            x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).cuda()
+            got = LI.literal_residual(x, lw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, LI.literal_residual_reference(x, lw)), shape

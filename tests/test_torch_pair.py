@@ -143,7 +143,7 @@ def test_cuda_kernel_matches_plain():
     p = read_static_qfp_vect_c(os.path.join(REPO, "assets", "golden", "model_q37.data"))
     fw = FU.FusedWeights.from_engine(p, "cuda")
     rng = np.random.default_rng(7)
-    for shape in ((1, 37, 53), (2, 13, 245), (3, 40, 50)):
+    for shape in ((1, 37, 53), (2, 13, 245), (3, 40, 50)):  # odd batches included
         x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).cuda()
         got = PA.pair_forward(x, fw)
         torch.cuda.synchronize()

@@ -20,7 +20,7 @@ from qcnn_gpu_tpu.ops.pallas_pipeline3 import PackedWeights3
 from qcnn_gpu_tpu.testing import synth_engine_params
 from qcnn_gpu_tpu_torch.models import qvrcnn as Q
 from qcnn_gpu_tpu_torch.models.engine_params import EngineParams
-from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, mma_b_fragments
+from qcnn_gpu_tpu_torch.ops.fused import FusedWeights
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODELS = [22, 27, 32, 37, "int4"]
@@ -100,16 +100,6 @@ def test_fused_weights_refuse_tables_outside_saturation_window(layer, sign):
     Q.MergedParams.from_engine(bad)
     with pytest.raises(ValueError, match="saturation window"):
         FusedWeights.from_engine(bad)
-
-
-def test_mma_fragments_hold_every_weight_once():
-    """Unpacking the kernel's fragment order gives back the HWIO weights
-    and zeros in the padding."""
-    w = np.random.default_rng(0).integers(-128, 128, size=(3, 3, 48, 48)).astype(np.int8)
-    frag = mma_b_fragments(w).reshape(14, 6, 8, 4, 2, 4)  # kc, nt, g, t, h, j
-    wp = frag.transpose(0, 4, 3, 5, 1, 2).reshape(14 * 32, 48)
-    assert (wp[:432] == w.reshape(432, 48)).all() and not wp[432:].any()
-    assert mma_b_fragments(np.ones((5, 5, 1, 64), np.int8)).sum() == 25 * 64
 
 
 def test_port_imports_no_jax():
