@@ -37,13 +37,27 @@ nvcc each, all at once) and then:
        with no TPU counterpart, so not in the kernels line);
   10   generation 1's entry point (`tools/bench_kernels`), then v3, v2
        and v1 timed at 1080p batch 4 in turns (v3 v2 v1 v1 v2 v3), beside
-       their plain versions.
+       their plain versions;
+  11   the streaming engine (engine/stream.py, engine/packed.py):
+       phase 4's pipelined raw stream again under
+       `torch.cuda.set_sync_debug_mode("error")` (no host sync in the
+       producer), equal to phase 4, and traced with torch.profiler (the
+       time a copy overlaps the kernel must be above 0); a static-camera
+       sequence (16 frames of 1920x1080, a 128x128 textured square moving
+       16 px a frame) through `cli run --transport raw` and `--transport duplex`:
+       equal reconstructions, `+duplex` served, fewer wire bytes than raw's
+       2 B/px, at least one packed step, then the duplex stream under the
+       sync check and traced (the device time of its own torch operations
+       per packed step, and its host seconds: send and receive, and their
+       pack, predict, dispatch, fetch wait and decode); and `cli run
+       --transport auto` on phase 4's frames, equal to phase 4, its
+       decision from 3 link and 3 device samples.
 
-Every path (phases 4, 8, 9 and 10) runs with the launch counts set to 0
-just before it and read just after; a kernel of the path that was not
-launched fails the run. No phase catches an error: any failure exits
-non-zero. Without a GPU, or without the rest of the repository, it exits
-non-zero and prints no result.
+Every path (phases 4, 8, 9, 10 and each of 11's) runs with the launch
+counts set to 0 just before it and read just after; a kernel of the path
+that was not launched fails the run. No phase catches an error: any
+failure exits non-zero. Without a GPU, or without the rest of the
+repository, it exits non-zero and prints no result.
 
 Output, one item per line: the GPU's name and power limit (nvidia-smi),
 the build times, every comparison, the paths' PSNR and times, the
@@ -53,6 +67,7 @@ timings; then a JSON line {"kernels": [...]} and, last, the JSON line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -123,6 +138,19 @@ def read_y420(path: str, n: int, h: int, w: int):
     return raw.reshape(n, -1)[:, : h * w].reshape(n, h, w)
 
 
+@contextlib.contextmanager
+def no_host_sync():
+    """Any CUDA call that synchronises with the host raises inside."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
 def main() -> int:
     import torch
 
@@ -134,7 +162,7 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from qcnn_gpu_tpu_torch import cli
-    from qcnn_gpu_tpu_torch.engine.runner import read_model
+    from qcnn_gpu_tpu_torch.engine.runner import Engine, read_model
     from qcnn_gpu_tpu_torch.models.qvrcnn import _normalized_table, make_forward
     from qcnn_gpu_tpu_torch.models.topology import MACS_PER_PIXEL
     from qcnn_gpu_tpu_torch.ops import build
@@ -154,6 +182,7 @@ def main() -> int:
     )
     from qcnn_gpu_tpu_torch.ops.pair import pair_forward, pair_forward_reference
     from qcnn_gpu_tpu_torch.tools import PEAK_INT8_OPS, bench_kernels, events_ms, mma_probe, smi
+    from qcnn_gpu_tpu_torch.tools.profile import duplex_host_split, static_camera, trace_stream
 
     wrappers = {
         "qvrcnn_fused": fused_forward, "qvrcnn_pair": pair_forward,
@@ -265,20 +294,21 @@ def main() -> int:
     write_yuv420(yuv["ori"], ori)
     write_yuv420(yuv["anchor"], anchor)
 
-    def cli_run(impl: str):
+    def cli_run(impl: str, transport: str = "raw", files=yuv):
         """`cli run` on the 16 frames; -> (launch counts, recon, record)."""
-        out = os.path.join(tmp, impl)
+        out = os.path.join(tmp, f"{impl}-{transport}-{os.path.basename(files['anchor'])}")
         recon_path = os.path.join(out, "recon.yuv")
         zero_counts()
         rc = cli.main([
-            "run", "--ori", yuv["ori"], "--anchor", yuv["anchor"],
+            "run", "--ori", files["ori"], "--anchor", files["anchor"],
             "--height", str(H), "--width", str(W), "--frames", str(n_frames),
             "--model", os.path.join(GOLDEN, "model_q37.data"), "--qp", "37",
-            "--device", "cuda", "--impl", impl, "--out-dir", out, "--recon", recon_path,
+            "--device", "cuda", "--impl", impl, "--transport", transport,
+            "--out-dir", out, "--recon", recon_path,
         ])
         launched = counts()
         if rc != 0:
-            fail(f"cli run --impl {impl} exited {rc}")
+            fail(f"cli run --impl {impl} --transport {transport} exited {rc}")
         with open(os.path.join(out, "runs.jsonl")) as fp:
             rec = json.loads(fp.readline())
         if not (math.isfinite(rec["psnr_before"]) and math.isfinite(rec["psnr_after"])):
@@ -302,7 +332,8 @@ def main() -> int:
           f"{launches['qvrcnn_fused']}, recon == plain version; PSNR before "
           f"{run['psnr_before']:.4f} dB, after {run['psnr_after']:.4f} dB; {run['time_us']} us "
           f"incl. H2D/D2H = {ms_frame:.3f} ms/frame "
-          f"({n_frames / (run['time_us'] / 1e6):.1f} fps, impl={run['impl']}) {card}")
+          f"({n_frames / (run['time_us'] / 1e6):.1f} fps, impl={run['impl']}, transport "
+          f"{run['transport']['served']}, pipelined) {card}")
 
     # ---- phase 5: kernel and plain ms/frame at 1080p
     fw37 = fws["golden-QP37"]
@@ -398,7 +429,6 @@ def main() -> int:
     print(f"cli run --impl kernel2: pair kernel launches={launches['qvrcnn_pair']}, recon == "
           f"phase 4's; impl={run2['impl']}; {run2['time_us'] / 1e3 / n_frames:.3f} ms/frame incl. "
           f"H2D/D2H {card}")
-    tmp_dir.cleanup()
 
     # ---- phase 9: the matrix-rate probe, exact at grid 2, then its tool
     for pname, kind, k, n in mma_probe.CASES:
@@ -455,6 +485,86 @@ def main() -> int:
                              events_ms(lambda: mma_probe.mma_probe_reference(a, w), 2))
     print(f"mma_probe int8_i32 grid {sms}: kernel {measured['mma_probe'][0]:.4f} ms, plain "
           f"{measured['mma_probe'][1]:.4f} ms {card}")
+
+    # ---- phase 11: the streaming engine. (a) phase 4's raw stream under
+    # the host-sync check, then traced: a copy must overlap the kernel
+    model = os.path.join(GOLDEN, "model_q37.data")
+    eng = Engine(device="cuda")
+    eng.load_model(37, model)
+    eng.warmup(37, H, W, n_frames, transport="duplex")  # raw shapes, rings, duplex
+    zero_counts()
+    with no_host_sync():
+        got = eng.restore_stream(anchor, 37, transport="raw")
+    n_raw = counts()["qvrcnn_fused"]
+    if n_raw <= 0 or not (got == recon).all():
+        fail(f"pipelined raw stream: {n_raw} fused launches, recon equal to phase 4: "
+             f"{bool((got == recon).all())}")
+    tr = trace_stream(eng, anchor, 37, "raw")
+    print(f"raw stream {n_frames}x{H}x{W} under set_sync_debug_mode('error'): no host sync, "
+          f"recon == phase 4, fused launches={n_raw}; traced: window {tr['window_us']:.1f} us "
+          f"({tr['window_us'] / 1e3 / n_frames:.4f} ms/frame), kernel {tr['kernel_us']:.1f} us "
+          f"({100 * tr['kernel_share']:.1f}% busy), H2D {tr['h2d_us']:.1f} us, D2H "
+          f"{tr['d2h_us']:.1f} us, memcpy/kernel overlap {tr['overlap_us']:.1f} us {card}")
+    if tr["kernel_launches"] <= 0 or tr["overlap_us"] <= 0:
+        fail(f"no memcpy/kernel overlap in the traced raw stream: {tr}")
+
+    # (b) a static camera through cli run --transport raw and duplex
+    ori_s, anchor_s = static_camera(n_frames, H, W, seed=3)
+    static = {k: os.path.join(tmp, f"static_{k}.yuv") for k in ("ori", "anchor")}
+    write_yuv420(static["ori"], ori_s)
+    write_yuv420(static["anchor"], anchor_s)
+    launched_sr, recon_sr, run_sr = cli_run("auto", "raw", static)
+    launched_sd, recon_sd, run_sd = cli_run("auto", "duplex", static)
+    wire = run_sd["transport"]
+    raw_bytes = n_frames * H * W
+    print(f"static camera {n_frames}x{H}x{W}: cli run --transport raw {run_sr['time_us'] / 1e3 / n_frames:.4f} "
+          f"ms/frame (fused launches={launched_sr['qvrcnn_fused']}), --transport duplex "
+          f"{run_sd['time_us'] / 1e3 / n_frames:.4f} ms/frame (fused launches="
+          f"{launched_sd['qvrcnn_fused']}), impl={run_sd['impl']}; duplex wire h2d "
+          f"{wire.get('h2d_bytes')} B, d2h {wire.get('d2h_bytes')} B against raw {raw_bytes} B "
+          f"each way ({wire.get('full_steps')} full, {wire.get('packed_steps')} packed steps, "
+          f"{wire.get('dense_fetches')} dense fetches) {card}")
+    if launched_sd["qvrcnn_fused"] <= 0 or not (recon_sd == recon_sr).all():
+        fail("cli run --transport duplex: no fused launch, or recon differs from --transport raw")
+    if not run_sd["impl"].endswith("+duplex") or wire.get("packed_steps", 0) < 1:
+        fail(f"cli run --transport duplex served {run_sd['impl']} with {wire}")
+    if not (wire["h2d_bytes"] < raw_bytes and wire["d2h_bytes"] < raw_bytes):
+        fail(f"the duplex wire moved no fewer bytes than raw: {wire}")
+    print(f"duplex host split, cli run: {duplex_host_split(wire, run_sd['time_us'] / 1e6)} {card}")
+    eng.restore_stream(anchor_s, 37, transport="duplex")  # the transport meets this content
+    zero_counts()
+    t0 = time.perf_counter()
+    with no_host_sync():
+        got = eng.restore_stream(anchor_s, 37, transport="duplex")
+    window = time.perf_counter() - t0
+    n_duplex = counts()["qvrcnn_fused"]
+    steps = eng.last_stream["packed_steps"]
+    if n_duplex <= 0 or steps < 1 or not (got == recon_sr).all():
+        fail(f"duplex stream: {n_duplex} launches, {steps} packed steps, recon equal to raw: "
+             f"{bool((got == recon_sr).all())}")
+    print(f"duplex host split, under the sync check: "
+          f"{duplex_host_split(eng.last_stream, window)} {card}")
+    tr = trace_stream(eng, anchor_s, 37, "duplex")
+    print(f"duplex stream under set_sync_debug_mode('error'): no host sync, recon == raw, "
+          f"{steps} packed steps, {eng.last_stream['dense_fetches']} dense fetches; traced: window {tr['window_us']:.1f} us, kernel "
+          f"{tr['kernel_us']:.1f} us, duplex device ops {tr['other_us']:.1f} us in "
+          f"{tr['other_ops']} ({tr['other_us'] / max(tr['packed_steps'], 1):.1f} us per packed "
+          f"step of 4 frames), H2D {tr['h2d_us']:.1f} us, D2H {tr['d2h_us']:.1f} us {card}")
+
+    # (c) cli run --transport auto on phase 4's frames
+    launched_a, recon_a, run_a = cli_run("auto", "auto")
+    dec = run_a["transport"].get("auto", {})
+    print(f"cli run --transport auto: chose {dec.get('transport')} (served "
+          f"{run_a['transport']['served']}); link {dec.get('link_mbps', 0):.1f} MB/s = "
+          f"{dec.get('link_fps', 0):.1f} fps from {dec.get('link_seconds')} s, device "
+          f"{dec.get('device_fps', 0):.1f} fps from {dec.get('device_seconds')} s; "
+          f"{run_a['time_us'] / 1e3 / n_frames:.4f} ms/frame, fused launches="
+          f"{launched_a['qvrcnn_fused']} {card}")
+    if len(dec.get("link_seconds", ())) < 3 or len(dec.get("device_seconds", ())) < 3:
+        fail(f"transport auto decided from fewer than 3 + 3 samples: {dec}")
+    if launched_a["qvrcnn_fused"] <= 0 or not (recon_a == recon).all():
+        fail("cli run --transport auto: no fused launch, or recon differs from raw")
+    tmp_dir.cleanup()
 
     # least time for the same work: operations over the int8 peak, bytes
     # (each input read once, each output written once) over HBM's rate

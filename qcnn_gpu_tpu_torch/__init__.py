@@ -16,8 +16,12 @@ Layering (bottom -> top):
   csrc/            hand-written CUDA C++ kernels (sm_90a): generations 3, 2
                    and 1 on one design (`wgmma`, hopper_wgmma.cuh)
   ops/build.py     nvcc build of csrc/ into ctypes-loaded libraries
-  engine/          Engine (program cache, batched restore) + metrics log
-  cli.py           `run` and `sweep` entry points
+  native/          the packed transports' host side in C++ (g++ at first use)
+  engine/          Engine (program cache, transports, metrics log);
+                   stream.py: pipelined restore on pinned rings and CUDA
+                   streams; packed.py: the packed and duplex wire
+                   transports
+  cli.py           `run` and `sweep` entry points (`--transport`)
   tools/           profile, bench_kernels, mma_probe (run on a CUDA GPU)
 
 The port imports torch and nothing of jax or of the JAX package: what it

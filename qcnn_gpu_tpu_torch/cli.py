@@ -2,7 +2,7 @@
 
     python -m qcnn_gpu_tpu_torch.cli run --ori ori.yuv --anchor anchor.yuv \
         --height 1080 --width 1920 --frames 16 --model model_q37.data \
-        --qp 37 --device cuda
+        --qp 37 --device cuda --transport raw
     python -m qcnn_gpu_tpu_torch.cli sweep --data-root /data \
         --model-pattern models/model_q%d.data --qps 22,27,32,37
 
@@ -14,7 +14,11 @@ over a list of QPs, one model per QP). `--impl` picks the program:
 kernel = generation 3 (the counterpart of the JAX `pallas`),
 kernel2 / kernel3 = the frame-pair / one-frame kernel, reference = the
 float64-exact reference net, auto = kernel. On `--device cpu` a kernel
-runs as its plain version.
+runs as its plain version. `--transport` picks the wire of the pipelined
+stream (cli.py:388, :408): raw (2 B/px each way), duplex (block-sparse
+temporal deltas up, predicted residual-delta blocks down; for
+static-camera content), or auto (measure the link against the device
+rate, best of 3 samples each, and pick).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import argparse
 import sys
 
 from qcnn_gpu_tpu_torch.data.manifest import JCTVC_SEQUENCES, load_manifest
-from qcnn_gpu_tpu_torch.engine.runner import IMPLS, Engine
+from qcnn_gpu_tpu_torch.engine.runner import IMPLS, TRANSPORTS, Engine
 
 
 def cmd_run(args) -> int:
@@ -38,11 +42,13 @@ def cmd_run(args) -> int:
         qp=args.qp,
         frames=args.frames,
         recon_path=args.recon,
+        transport=args.transport,
     )
     print(
         f"before net: PSNR={rec.psnr_before:.3f}\n"
         f"after quantized net: PSNR={rec.psnr_after:.3f}\n"
-        f"time: {rec.time_us}us ({rec.fps:.1f} fps, impl={rec.impl})"
+        f"time: {rec.time_us}us ({rec.fps:.1f} fps, impl={rec.impl}, "
+        f"transport={rec.transport['served']})"
     )
     return 0
 
@@ -53,7 +59,7 @@ def cmd_sweep(args) -> int:
     eng = Engine(device=args.device, impl=args.impl, out_dir=args.out_dir)
     for qp in qps:
         eng.load_model(qp, args.model_pattern % qp, fmt=args.model_format)
-    for r in eng.run_manifest(specs, args.data_root, qps=qps):
+    for r in eng.run_manifest(specs, args.data_root, qps=qps, transport=args.transport):
         print(f"{r.sequence} QP{r.qp}: {r.psnr_before:.3f} -> {r.psnr_after:.3f} dB, "
               f"{r.fps:.1f} fps")
     return 0
@@ -63,6 +69,7 @@ def _add_engine_flags(p) -> None:
     p.add_argument("--model-format", default="vect_c", choices=["vect_c", "hwcn", "pc"])
     p.add_argument("--impl", default="auto", choices=list(IMPLS))
     p.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
+    p.add_argument("--transport", default="raw", choices=list(TRANSPORTS))
     p.add_argument("--out-dir", default=".")
 
 

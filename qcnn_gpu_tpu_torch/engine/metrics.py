@@ -28,6 +28,9 @@ class RunRecord:
     time_us: int
     impl: str = ""
     device: str = ""
+    # the stream's wire: {"served": "raw" | "duplex", "h2d_bytes", "d2h_bytes"},
+    # the duplex steps, and under transport="auto" the probe that chose
+    transport: dict = dataclasses.field(default_factory=dict)
     timestamp: float = dataclasses.field(default_factory=time.time)
 
     @property

@@ -1,4 +1,4 @@
-"""The inference engine — program cache, batched restore, metrics.
+"""The inference engine: program cache, streaming restore, metrics.
 
 Counterpart of `qcnn_gpu_tpu/engine/runner.py:Engine` on one torch
 device. A program is the restorer for one (qp, device, program name):
@@ -13,11 +13,22 @@ device. A program is the restorer for one (qp, device, program name):
 A kernel runs as its CUDA kernel on a CUDA device and as its plain
 version on the CPU. The program name, and so the cache key and
 `RunRecord.impl`, is the generation that runs ("kernel2", "kernel3") or
-"reference".
+"reference"; "+duplex" is appended when the duplex transport served.
 
-The device is explicit and nothing changes it: a CUDA device without
-CUDA raises, and a failed kernel build or launch raises. There is no
-demotion to another program, no host tiling, mesh or wire transport.
+`restore_stream` pipelines batches (engine/stream.py: pinned rings and
+copy/compute streams on CUDA) over one of three transports: "raw" (2 B/px
+each way), "duplex" (engine/packed.py: block-sparse temporal deltas up,
+predicted residual-delta blocks down, for static-camera content), or
+"auto", which measures the link and the device rate and picks.
+
+Two departures from the JAX engine, on purpose. The device is explicit
+and nothing changes it: a CUDA device without CUDA raises, a failed
+kernel build or launch raises, and a failure of the duplex path raises
+(the JAX engine falls back to raw, runner.py:279-288) after evicting the
+transport, whose carries may be out of step. And there is no host
+tiling: the JAX engine tiles when a whole-frame program fails
+(runner.py:205-219; some toolchains reject XLA graphs above 1080p),
+while the port compiles no graph and launches a 2160p batch whole.
 
 Timing follows the reference's definition: wall clock around the whole
 frame loop including host->device and device->host copies
@@ -41,12 +52,16 @@ from qcnn_gpu_tpu_torch.data.model_files import (
     read_static_qfp_vect_c,
 )
 from qcnn_gpu_tpu_torch.engine.metrics import MetricsLog, RunRecord
+from qcnn_gpu_tpu_torch.engine.packed import DuplexTransport, make_duplex_restore, warm_batches
+from qcnn_gpu_tpu_torch.engine.stream import Staging, pipeline, pipeline_restore, writer
 from qcnn_gpu_tpu_torch.models.engine_params import EngineParams
 from qcnn_gpu_tpu_torch.models.qvrcnn import make_forward
 from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, fused_forward
 from qcnn_gpu_tpu_torch.ops.pair import pair_forward
 
 IMPLS = ("auto", "kernel", "kernel2", "kernel3", "reference")
+TRANSPORTS = ("raw", "duplex", "auto")
+PROBE_SAMPLES = 3  # transport="auto" takes the best of 3 (ROADMAP, reference hazards)
 _READERS = {
     "vect_c": read_static_qfp_vect_c,
     "hwcn": read_static_qfp_hwcn,
@@ -80,8 +95,13 @@ class Engine:
         self.impl = "kernel" if impl == "auto" else impl
         self.batch_frames = batch_frames
         self.metrics = MetricsLog(out_dir)
+        # transport="auto": (qp, (H, W), batch) -> the probe's samples and choice
+        self.transport_decisions: Dict[Tuple, dict] = {}
+        self.last_stream: dict = {}  # the wire of the last restore_stream
         self._models: Dict[int, EngineParams] = {}
         self._programs: Dict[Tuple, Callable] = {}
+        self._staging: Dict[Tuple, Staging] = {}  # (H, W, batch) -> pinned ring
+        self._duplex: Dict[Tuple, DuplexTransport] = {}  # (qp, (H, W), batch)
 
     # ---- model management (load_static_para analog, qvrcnn.cu:47-63) ----
     def load_model(self, qp: int, path: str, fmt: str = "vect_c") -> None:
@@ -90,6 +110,7 @@ class Engine:
     def set_model(self, qp: int, params: EngineParams) -> None:
         self._models[qp] = params
         self._programs = {k: v for k, v in self._programs.items() if k[0] != qp}
+        self._duplex = {k: v for k, v in self._duplex.items() if k[0] != qp}
 
     @property
     def program_name(self) -> str:
@@ -112,32 +133,188 @@ class Engine:
             self._programs[key] = run
         return self._programs[key]
 
+    def _stage(self, geo, depth: int) -> Staging:
+        """The pinned ring and streams for batches of batch_frames at `geo`."""
+        h, w = geo
+        bs = self.batch_frames
+        key = (h, w, bs)
+        st = self._staging.get(key)
+        if st is None or st.slots < depth + 2:
+            st = Staging(self.device, depth + 2, bs * h * w, bs * h * w)
+            self._staging[key] = st
+        return st
+
     # ---- restoration ----
     def restore(self, frames: np.ndarray, qp: int) -> np.ndarray:
         """uint8 [N, H, W] -> restored uint8 [N, H, W] (blocking)."""
         x = torch.from_numpy(np.ascontiguousarray(frames, np.uint8)).to(self.device)
         return self._program(qp)(x).cpu().numpy()
 
-    def restore_stream(self, frames: np.ndarray, qp: int) -> np.ndarray:
-        """Restore `frames` in batches of batch_frames: copy up, run, copy
-        down, one batch after the other."""
-        run = self._program(qp)
-        n = frames.shape[0]
-        out = np.empty_like(frames)
-        for i in range(0, n, self.batch_frames):
-            x = torch.from_numpy(np.ascontiguousarray(frames[i : i + self.batch_frames]))
-            out[i : i + x.shape[0]] = run(x.to(self.device)).cpu().numpy()
+    def restore_stream(
+        self, frames: np.ndarray, qp: int, depth: int = 3, transport: str = "raw"
+    ) -> np.ndarray:
+        """Pipelined streaming restore of uint8 [N, H, W] in batches of
+        batch_frames, `depth` batches in flight (engine/stream.py), over
+        `transport`: "raw", "duplex" (engine/packed.py; a ragged tail goes
+        through raw) or "auto" (`_pick_transport`). `last_stream` records
+        what crossed the wire."""
+        if transport not in TRANSPORTS:
+            raise ValueError(f"transport must be one of {TRANSPORTS}, got {transport!r}")
+        if frames.dtype != np.uint8 or frames.ndim != 3:
+            raise ValueError(f"expected uint8 frames [N, H, W], got {frames.dtype} {frames.shape}")
+        probe = self._pick_transport(frames, qp) if transport == "auto" else None
+        if probe is not None:
+            transport = probe["transport"]
+        if transport == "duplex":
+            try:
+                out, stream = self._restore_stream_duplex(frames, qp, depth)
+            except BaseException:
+                # the producer may have sent past the batch that failed: the
+                # carries are out of step, so the next stream starts afresh
+                self._evict_duplex(qp, frames.shape[-2:])
+                raise
+        else:
+            out = np.empty_like(frames)
+            self._restore_stream_raw(frames, qp, depth, out)
+            stream = {"served": "raw", "h2d_bytes": frames.nbytes, "d2h_bytes": frames.nbytes}
+        if probe is not None:
+            stream["auto"] = probe
+        self.last_stream = stream
         return out
 
-    def warmup(self, qp: int, height: int, width: int, frames: int = 1) -> None:
-        """Build the program (kernel compile, weight upload) and run every
-        batch shape restore_stream will use, ahead of the timed span."""
+    def _restore_stream_raw(self, frames, qp: int, depth: int, out: np.ndarray) -> None:
         bs = self.batch_frames
-        sizes = {min(bs, max(frames, 1))}
-        if frames > bs and frames % bs:
-            sizes.add(frames % bs)
-        for n in sorted(sizes):
-            self.restore(np.zeros((n, height, width), np.uint8), qp)
+        pipeline_restore(
+            self._program(qp),
+            (frames[i:i + bs] for i in range(0, frames.shape[0], bs)),
+            depth, device=self.device, on_output=writer(out),
+            staging=self._stage(frames.shape[-2:], depth),
+        )
+
+    def _pick_transport(self, frames: np.ndarray, qp: int) -> dict:
+        """Measured raw-or-duplex decision for this (qp, geometry, batch).
+
+        The link: the host clock around a round trip of one real batch
+        through the raw transport's pinned ring (host copy in, H2D, D2H,
+        host copy out), best of PROBE_SAMPLES after one warm-up. The
+        device: the program on a device-resident batch, CUDA events on a
+        CUDA device, best of PROBE_SAMPLES after one warm-up. Raw keeps up
+        iff link fps >= 0.8 x device fps; otherwise the stream is
+        link-bound and the duplex wire is chosen (runner.py:304-353, with
+        the best of 3 samples in place of one). Returns the decision, kept
+        with every sample in `transport_decisions`; a probe that fails
+        raises."""
+        bs = min(self.batch_frames, frames.shape[0])
+        key = (qp, tuple(frames.shape[-2:]), bs)
+        if key in self.transport_decisions:
+            return self.transport_decisions[key]
+        x = np.ascontiguousarray(frames[:bs])
+        st = self._stage(key[1], 3)
+        link_s = []
+        for i in range(PROBE_SAMPLES + 1):  # the first warms the path
+            t0 = time.perf_counter()
+            s = st.take()
+            try:
+                xd, up = st.upload(s, [x])
+                st.fetch(st.download(s, [xd], after=up))
+            finally:
+                st.release(s)
+            if i:
+                link_s.append(time.perf_counter() - t0)
+        run = self._program(qp)
+        xd = torch.from_numpy(x.copy()).to(self.device)
+        run(xd)  # warm-up
+        dev_s = []
+        for _ in range(PROBE_SAMPLES):
+            if self.device.type == "cuda":
+                start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                run(xd)
+                stop.record()
+                stop.synchronize()
+                dev_s.append(start.elapsed_time(stop) / 1e3)
+            else:
+                t0 = time.perf_counter()
+                run(xd)
+                dev_s.append(time.perf_counter() - t0)
+        link_fps, dev_fps = bs / min(link_s), bs / min(dev_s)
+        self.transport_decisions[key] = {
+            "transport": "duplex" if link_fps < 0.8 * dev_fps else "raw",
+            "link_mbps": 2 * x.nbytes / min(link_s) / 1e6,
+            "link_fps": link_fps,
+            "device_fps": dev_fps,
+            "link_seconds": link_s,
+            "device_seconds": dev_s,
+        }
+        return self.transport_decisions[key]
+
+    def _evict_duplex(self, qp: int, geo) -> None:
+        """Drop the cached duplex transport for (qp, geometry): after a
+        failure its producer and consumer state may be out of step."""
+        self._duplex.pop((qp, tuple(geo), self.batch_frames), None)
+
+    def _duplex_transport(self, qp: int, geo, depth: int) -> DuplexTransport:
+        """The cached duplex transport for (qp, geometry, batch): it carries
+        the stream's state (host previous frame and residual, device
+        carries), so restore_stream calls continue one stream."""
+        bs = self.batch_frames
+        key = (qp, tuple(geo), bs)
+        tr = self._duplex.get(key)
+        if tr is None or tr.staging.slots < depth + 2:
+            tr = make_duplex_restore(self._program(qp), self.device,
+                                     staging=Staging(self.device, depth + 2))
+            tr.reserve((bs,) + tuple(geo))
+            self._duplex[key] = tr
+        return tr
+
+    def _restore_stream_duplex(self, frames: np.ndarray, qp: int, depth: int):
+        n = frames.shape[0]
+        bs = self.batch_frames
+        cut = (n // bs) * bs  # the ragged tail goes through the raw transport
+        tr = self._duplex_transport(qp, frames.shape[-2:], depth)
+        # wire bytes, and host seconds summed over the stream's batches
+        # (send, receive and their parts: DuplexTransport.stats)
+        marks = {k: len(v) for k, v in tr.stats.items() if k.endswith("_bytes") or k[:2] == "t_"}
+        steps = {k: tr.stats[k] for k in ("full_steps", "packed_steps", "dense_fetches")}
+        out = np.empty_like(frames)
+        pipeline(tr, [frames[i:i + bs] for i in range(0, cut, bs)], depth, on_output=writer(out))
+        stream = {"served": "duplex"}
+        for k, i0 in marks.items():
+            stream[k] = sum(tr.stats[k][i0:])
+        stream.update({k: tr.stats[k] - v for k, v in steps.items()})
+        if cut < n:
+            self._restore_stream_raw(frames[cut:], qp, depth, out[cut:])
+            stream["h2d_bytes"] += frames[cut:].nbytes
+            stream["d2h_bytes"] += frames[cut:].nbytes
+            stream["raw_tail_frames"] = n - cut
+        return out, stream
+
+    def warmup(self, qp: int, height: int, width: int, frames: int = 1,
+               transport: str = "raw", depth: int = 3) -> None:
+        """Ahead of the timed span: build the program (kernel compile,
+        weight upload) and stream zeros through the pipeline: depth + 2
+        full batches, every slot of the pinned ring and the device memory
+        of as many batches in flight, then the ragged tail's shape;
+        under "auto", probe the transport; under "duplex" (or "auto"
+        choosing it), warm the duplex transport with a full step and
+        packed steps of every block class (`packed.warm_batches`), as
+        many in flight."""
+        if transport not in TRANSPORTS:
+            raise ValueError(f"transport must be one of {TRANSPORTS}, got {transport!r}")
+        bs = self.batch_frames
+        frames = max(frames, 1)
+        z = np.zeros(((depth + 2) * bs + frames % bs, height, width), np.uint8)
+        self._restore_stream_raw(z, qp, depth, np.empty_like(z))
+        if transport == "auto":
+            transport = self._pick_transport(z[:min(bs, frames)], qp)["transport"]
+        if transport == "duplex" and frames >= bs:
+            tr = self._duplex_transport(qp, (height, width), depth)
+            try:
+                pipeline(tr, warm_batches(depth + 2, bs, height, width), depth,
+                         on_output=lambda a: None)
+            except BaseException:
+                self._evict_duplex(qp, (height, width))
+                raise
 
     # ---- the testqvrcnn analog (kernel.cu:74-116) ----
     def run_sequence(
@@ -150,14 +327,16 @@ class Engine:
         qp: int,
         frames: int = 1,
         recon_path: Optional[str] = None,
+        transport: str = "raw",
     ) -> RunRecord:
         ori = yuv.read_y(ori_path, height, width, frames)
         anchor = yuv.read_y(anchor_path, height, width, frames)
-        self.warmup(qp, height, width, frames)
+        self.warmup(qp, height, width, frames, transport=transport)
 
         t0 = time.perf_counter()
-        recon = self.restore_stream(anchor, qp)
+        recon = self.restore_stream(anchor, qp, transport=transport)
         time_us = int((time.perf_counter() - t0) * 1e6)
+        served = self.last_stream["served"]
 
         rec = RunRecord(
             sequence=name,
@@ -168,8 +347,9 @@ class Engine:
             psnr_before=yuv.psnr(anchor, ori),
             psnr_after=yuv.psnr(recon, ori),
             time_us=time_us,
-            impl=self.program_name,
+            impl=self.program_name + ("+duplex" if served == "duplex" else ""),
             device=str(self.device),
+            transport=dict(self.last_stream),
         )
         self.metrics.append(rec)
         if recon_path:

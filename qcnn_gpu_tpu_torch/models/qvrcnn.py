@@ -112,7 +112,7 @@ class ModelParams:
     device: torch.device
 
     @classmethod
-    def from_engine(cls, p: EngineParams, device="cpu") -> "ModelParams":
+    def from_engine(cls, p: EngineParams, device) -> "ModelParams":
         p.validate()
         device = torch.device(device)
         mul, shift = _normalized_table(p)
@@ -154,7 +154,7 @@ class MergedParams:
     device: torch.device
 
     @classmethod
-    def from_engine(cls, p: EngineParams, device="cpu") -> "MergedParams":
+    def from_engine(cls, p: EngineParams, device) -> "MergedParams":
         p.validate()
         device = torch.device(device)
 
@@ -291,7 +291,7 @@ class QVRCNN(nn.Module):
     (integers, never trained here) so that `state_dict` carries them.
     merged=False runs the literal 6-conv graph."""
 
-    def __init__(self, p: EngineParams, merged: bool = True, device="cpu"):
+    def __init__(self, p: EngineParams, merged: bool = True, *, device):
         super().__init__()
         self.merged = merged
         self.params = (MergedParams if merged else ModelParams).from_engine(p, device)
@@ -308,7 +308,7 @@ class QVRCNN(nn.Module):
         return apply_residual_u8(x_uint8, residual_blu_merged(x, self.params))
 
 
-def make_forward(p: EngineParams, device="cpu", merged: bool = True):
+def make_forward(p: EngineParams, device, merged: bool = True):
     """fn(uint8 tensor [N,H,W] on `device`) -> restored uint8 tensor,
     through the reference network (float64-exact convolutions)."""
     model = QVRCNN(p, merged=merged, device=device)

@@ -252,7 +252,7 @@ class FusedWeights:
     vec: torch.Tensor  # int32 [640]: per stage [b' | B | mul | shift]
 
     @classmethod
-    def from_engine(cls, p: EngineParams, device="cpu") -> "FusedWeights":
+    def from_engine(cls, p: EngineParams, device) -> "FusedWeights":
         mp = MergedParams.from_engine(p, "cpu")
         device = torch.device(device)
         w = [x.numpy() for x in mp.w_i8]

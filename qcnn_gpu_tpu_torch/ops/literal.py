@@ -65,7 +65,7 @@ class LiteralWeights:
     vec: torch.Tensor  # int32 [800]: per stage [b | blu_q | mul | bias_pre | shift]
 
     @classmethod
-    def from_engine(cls, p: EngineParams, device="cpu") -> "LiteralWeights":
+    def from_engine(cls, p: EngineParams, device) -> "LiteralWeights":
         mp = MergedParams.from_engine(p, "cpu")
         if mp.mul4 > 127:
             raise ValueError(f"final mul {mp.mul4} too large for int32 requant")

@@ -83,7 +83,7 @@ def _kind(t: torch.Tensor) -> str:
 
 
 def probe_inputs(kind: str, k: int, n: int, grid: int = GRID, m: int = M, seed: int = 0,
-                 device="cpu"):
+                 *, device):
     """Seeded operands: a [grid, m, k] in [-4, 4], w [CHAIN, k, n] in
     [-4, 4] without 0, of the case's operand type."""
     rng = np.random.default_rng(seed)
@@ -163,7 +163,7 @@ def issue_macs(kind: str, blocks: int, iters: int = ISSUE_ITERS) -> int:
 
 
 def mma_issue_reference(kind: str, blocks: int, iters: int = ISSUE_ITERS,
-                        device="cpu") -> torch.Tensor:
+                        *, device) -> torch.Tensor:
     """Plain version of mma_issue: every thread's sum of its 4 * NACC
     accumulators, each ITERS * k."""
     return torch.full((blocks * ISSUE_THREADS,), 4 * NACC * iters * ISSUE_K[kind],
@@ -177,7 +177,7 @@ def mma_issue(kind: str, blocks: int, iters: int = ISSUE_ITERS, device="cuda") -
         raise ValueError(f"no issue-rate kernel for {kind!r}")
     device = torch.device(device)
     if device.type == "cpu":
-        return mma_issue_reference(kind, blocks, iters)
+        return mma_issue_reference(kind, blocks, iters, device=device)
     out = torch.empty(blocks * ISSUE_THREADS, dtype=TYPES[kind][1], device=device)
     fn = build.function(KERNEL, "mma_issue_run", _ISSUE_ARGTYPES)
     with torch.cuda.device(device):

@@ -88,7 +88,7 @@ def test_bounds_match_masked_reference_core():
     cv = (torch.arange(33) >= 1) & (torch.arange(33) < 30)
     xt = torch.from_numpy(x)
     res = Q.residual_blu_merged(xt[..., None].to(torch.int64) - 128,
-                                Q.MergedParams.from_engine(EngineParams.from_arrays(p)), rv, cv)
+                                Q.MergedParams.from_engine(EngineParams.from_arrays(p), "cpu"), rv, cv)
     assert (_plain(p, x, 4, 17, 1, 30) == apply_residual_u8(xt, res).numpy()).all()
 
 

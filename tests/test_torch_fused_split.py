@@ -92,8 +92,8 @@ def test_split_operand_holds_every_weight_once():
 
 def test_split_operand_equals_fused_weights_split():
     p = _params(37)
-    fw = FU.FusedWeights.from_engine(p)
-    want = FU.split_operand([w.numpy() for w in MergedParams.from_engine(p).w_i8])
+    fw = FU.FusedWeights.from_engine(p, "cpu")
+    want = FU.split_operand([w.numpy() for w in MergedParams.from_engine(p, "cpu").w_i8])
     assert fw.split.dtype == torch.int8 and (fw.split.numpy() == want).all()
 
 
@@ -122,7 +122,7 @@ def test_emulation_matches_plain_and_pallas(model, n, h, w):
     from qcnn_gpu_tpu_torch.data.model_files import read_static_qfp_pc
 
     p = _params(model)
-    fw = FU.FusedWeights.from_engine(p)
+    fw = FU.FusedWeights.from_engine(p, "cpu")
     x = _frames(n, h, w, seed=h + w)
     got = emulate(x, fw)
     assert (got == FU.fused_forward_reference(torch.from_numpy(x), fw).numpy()).all()
@@ -136,7 +136,7 @@ def test_emulation_matches_plain_and_pallas(model, n, h, w):
 
 @pytest.mark.parametrize("bounds", [(3, 33, 5, 47), (0, 30, 9, 53)])
 def test_emulation_with_frame_bounds(bounds):
-    fw = FU.FusedWeights.from_engine(_params(22))
+    fw = FU.FusedWeights.from_engine(_params(22), "cpu")
     x = _frames(2, 37, 53, seed=5)
     want = FU.fused_forward_reference(torch.from_numpy(x), fw, *bounds).numpy()
     assert (emulate(x, fw, bounds) == want).all()
@@ -145,7 +145,7 @@ def test_emulation_with_frame_bounds(bounds):
 def test_emulation_tile_count_not_a_multiple_of_the_grid():
     """2 frames x 3 x 2 tiles on a grid of 5 blocks: blocks walk 2 or 3
     tiles each, across frames, through the same buffers."""
-    fw = FU.FusedWeights.from_engine(_params("int4"))
+    fw = FU.FusedWeights.from_engine(_params("int4"), "cpu")
     x = _frames(2, 3 * TH - 5, 2 * TW - 3, seed=9)
     want = FU.fused_forward_reference(torch.from_numpy(x), fw).numpy()
     assert (emulate(x, fw, grid=5) == want).all()
@@ -154,7 +154,7 @@ def test_emulation_tile_count_not_a_multiple_of_the_grid():
 def test_emulation_catches_a_read_of_a_stale_tail():
     """Without each stage zeroing its region's tail, a later tile's MMAs
     read bytes the previous tile left there: the emulation refuses."""
-    fw = FU.FusedWeights.from_engine(_params(37))
+    fw = FU.FusedWeights.from_engine(_params(37), "cpu")
     x = _frames(1, 37, 53, seed=1)
     with pytest.raises(AssertionError, match="not written this tile"):
         emulate(x, fw, grid=1, zero_tails=False)
@@ -174,5 +174,5 @@ def test_cuda_kernel_matches_emulation():
         got = FU.fused_forward(torch.from_numpy(x).cuda(), FU.FusedWeights.from_engine(p, "cuda"),
                                *bounds)
         torch.cuda.synchronize()
-        want = emulate(x, FU.FusedWeights.from_engine(p), bounds)
+        want = emulate(x, FU.FusedWeights.from_engine(p, "cpu"), bounds)
         assert (got.cpu().numpy() == want).all(), bounds

@@ -97,7 +97,7 @@ def _moved(jp, layer, sign):
 def _check_against_jax(jp, x):
     from qcnn_gpu_tpu.models import oracle as O
 
-    lw = LI.LiteralWeights.from_engine(EngineParams.from_arrays(jp))
+    lw = LI.LiteralWeights.from_engine(EngineParams.from_arrays(jp), "cpu")
     xt = torch.from_numpy(x)
     got = LI.literal_residual_reference(xt, lw)
     want_res, want_rec = _jax_v1(jp, x)
@@ -121,7 +121,7 @@ def test_plain_matches_pallas_v1_outside_saturation_window(layer, sign):
     stays exact."""
     jp = _moved(_synth(37), layer, sign)
     with pytest.raises(ValueError, match="saturation window"):
-        FusedWeights.from_engine(EngineParams.from_arrays(jp))
+        FusedWeights.from_engine(EngineParams.from_arrays(jp), "cpu")
     _check_against_jax(jp, _frames(1, 24, 31, seed=layer))
 
 
@@ -132,9 +132,9 @@ def test_weights_refuse_final_mul_above_127_like_jax():
     mul = list(jp.mul)
     mul[5] = 129  # odd: nothing to normalize away
     bad = dataclasses.replace(jp, mul=tuple(mul))
-    Q.MergedParams.from_engine(EngineParams.from_arrays(bad))  # the engine accepts it
+    Q.MergedParams.from_engine(EngineParams.from_arrays(bad), "cpu")  # the engine accepts it
     with pytest.raises(ValueError, match="final mul 129 too large"):
-        LI.LiteralWeights.from_engine(EngineParams.from_arrays(bad))
+        LI.LiteralWeights.from_engine(EngineParams.from_arrays(bad), "cpu")
     with pytest.raises(AssertionError, match="final mul 129 too large"):
         build_pallas_forward(bad, interpret=True)(_frames(1, 8, 8, seed=0))
 
@@ -144,12 +144,12 @@ def test_weights_refuse_activations_above_255():
     blu = list(p.blu_q)
     blu[0] = 3 * int(blu[0])  # kept values up to about 3 * 127
     with pytest.raises(ValueError, match="exceeds 255"):
-        LI.LiteralWeights.from_engine(dataclasses.replace(p, blu_q=blu))
+        LI.LiteralWeights.from_engine(dataclasses.replace(p, blu_q=blu), "cpu")
 
 
 def test_vectors_hold_the_unfolded_rows():
     p = EngineParams.from_arrays(_synth(22))
-    lw, mp = LI.LiteralWeights.from_engine(p), Q.MergedParams.from_engine(p)
+    lw, mp = LI.LiteralWeights.from_engine(p, "cpu"), Q.MergedParams.from_engine(p, "cpu")
     vec = lw.vec.numpy().astype(np.int64)
     off = 0
     for i, c in enumerate((64, 48, 48)):
@@ -162,7 +162,7 @@ def test_vectors_hold_the_unfolded_rows():
 
 
 def test_cpu_tensor_takes_the_plain_version():
-    lw = LI.LiteralWeights.from_engine(EngineParams.from_arrays(_synth(37)))
+    lw = LI.LiteralWeights.from_engine(EngineParams.from_arrays(_synth(37)), "cpu")
     x = torch.from_numpy(_frames(1, 19, 23, seed=3))
     before = LI.literal_residual.launches
     assert torch.equal(LI.literal_residual(x, lw), LI.literal_residual_reference(x, lw))

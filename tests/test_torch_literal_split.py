@@ -31,7 +31,7 @@ CSRC = os.path.join(REPO, "qcnn_gpu_tpu_torch", "csrc")
 
 
 def _check(jp, x, grid=3, pallas=True):
-    lw = LI.LiteralWeights.from_engine(EngineParams.from_arrays(jp))
+    lw = LI.LiteralWeights.from_engine(EngineParams.from_arrays(jp), "cpu")
     got = SE.emulate(x, lw, SE.GEN1, grid=grid)
     assert got.dtype == np.int16
     assert (got == LI.literal_residual_reference(torch.from_numpy(x), lw).numpy()).all()
@@ -82,7 +82,7 @@ def test_literal_emulation_tile_count_not_a_multiple_of_the_grid():
 
 
 def test_literal_emulation_catches_a_read_of_a_stale_tail():
-    lw = LI.LiteralWeights.from_engine(EngineParams.from_arrays(_synth(37)))
+    lw = LI.LiteralWeights.from_engine(EngineParams.from_arrays(_synth(37)), "cpu")
     with pytest.raises(AssertionError, match="not written this tile"):
         SE.emulate(_frames(1, 37, 53, seed=1), lw, SE.GEN1, grid=1, zero_tails=False)
 
@@ -91,7 +91,7 @@ def test_literal_emulation_catches_a_read_of_a_stale_tail():
 def test_literal_emulation_catches_a_dropped_barrier(barrier):
     """Each of the block's barriers is needed: without it, a warpgroup
     reads what another has not written yet."""
-    lw = LI.LiteralWeights.from_engine(EngineParams.from_arrays(_synth(37)))
+    lw = LI.LiteralWeights.from_engine(EngineParams.from_arrays(_synth(37)), "cpu")
     with pytest.raises(AssertionError, match="not written this tile"):
         SE.emulate(_frames(1, 37, 53, seed=1), lw, SE.GEN1, grid=1, drop_barrier=barrier)
 
@@ -100,10 +100,10 @@ def test_literal_weights_hold_the_split_image():
     """The literal kernel reads generation 3's weight image, packed from
     the same merged weights."""
     p = EngineParams.from_arrays(_synth(22))
-    lw = LI.LiteralWeights.from_engine(p)
-    want = FU.split_operand([w.numpy() for w in MergedParams.from_engine(p).w_i8])
+    lw = LI.LiteralWeights.from_engine(p, "cpu")
+    want = FU.split_operand([w.numpy() for w in MergedParams.from_engine(p, "cpu").w_i8])
     assert lw.split.dtype == torch.int8 and (lw.split.numpy() == want).all()
-    assert torch.equal(lw.split, FU.FusedWeights.from_engine(p).split)
+    assert torch.equal(lw.split, FU.FusedWeights.from_engine(p, "cpu").split)
 
 
 def test_literal_source_mirrors_the_layout():

@@ -51,14 +51,14 @@ def test_plain_matches_pallas_v2_and_oracle(n, h, w, qp):
 
     jp = _synth(qp)
     x = _frames(n, h, w, seed=n + h)
-    fw = FU.FusedWeights.from_engine(EngineParams.from_arrays(jp))
+    fw = FU.FusedWeights.from_engine(EngineParams.from_arrays(jp), "cpu")
     got = PA.pair_forward_reference(torch.from_numpy(x), fw).numpy()
     assert (got == np.asarray(build_pallas_forward2(jp, th=8, interpret=True)(x))).all()
     assert (got == O.forward_blu(x, jp)).all()
 
 
 def test_cpu_tensor_takes_the_plain_version():
-    fw = FU.FusedWeights.from_engine(EngineParams.from_arrays(_synth(37)))
+    fw = FU.FusedWeights.from_engine(EngineParams.from_arrays(_synth(37)), "cpu")
     x = torch.from_numpy(_frames(3, 19, 23, seed=3))
     before = PA.pair_forward.launches
     assert torch.equal(PA.pair_forward(x, fw), FU.fused_forward_reference(x, fw))
@@ -112,7 +112,7 @@ def test_impl_runs_its_generation(impl, name):
     eng.set_model(37, p)
     assert eng.program_name == name
     x = _frames(3, 9, 11, seed=1)
-    want = FU.fused_forward_reference(torch.from_numpy(x), FU.FusedWeights.from_engine(p)).numpy()
+    want = FU.fused_forward_reference(torch.from_numpy(x), FU.FusedWeights.from_engine(p, "cpu")).numpy()
     assert (eng.restore_stream(x, 37) == want).all()
     run = eng._programs[(37, "cpu", name)]
     assert getattr(run, "func", None) is GENERATION.get(name)

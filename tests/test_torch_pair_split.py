@@ -47,7 +47,7 @@ def _case(n, h, w, qp):
 
     jp = _synth(qp)
     x = _frames(n, h, w, seed=n + h + w)
-    fw = FU.FusedWeights.from_engine(EngineParams.from_arrays(jp))
+    fw = FU.FusedWeights.from_engine(EngineParams.from_arrays(jp), "cpu")
     return x, fw, np.asarray(build_pallas_forward2(jp, th=8, interpret=True)(x))
 
 

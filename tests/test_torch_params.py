@@ -41,13 +41,13 @@ def test_merged_params_and_bounds_equal_jax(model):
     p = _params(model)
     pp = EngineParams.from_arrays(p)
     assert Q.exactness_bounds(pp) == JQ.exactness_bounds(p)
-    port, jax_mp = Q.MergedParams.from_engine(pp), JQ.MergedParams.from_engine(p)
+    port, jax_mp = Q.MergedParams.from_engine(pp, "cpu"), JQ.MergedParams.from_engine(p)
     for name in ("w_i8", "b_i32", "blu_q", "mul", "bias_pre", "shift"):
         for a, b in zip(getattr(port, name), getattr(jax_mp, name), strict=True):
             assert a.dtype in (torch.int8, torch.int32), name
             assert (_np(a) == np.asarray(b)).all(), name
     assert (port.mul4, port.shift4) == (jax_mp.mul4, jax_mp.shift4)
-    lit, jlit = Q.ModelParams.from_engine(pp), JQ.ModelParams.from_engine(p)
+    lit, jlit = Q.ModelParams.from_engine(pp, "cpu"), JQ.ModelParams.from_engine(p)
     for name in ("blu_q", "mul", "shift"):
         for a, b in zip(getattr(lit, name), getattr(jlit, name), strict=True):
             assert (_np(a) == np.asarray(b)).all(), name
@@ -66,7 +66,7 @@ def test_normalized_table_raises_like_jax(layer, match):
     mul[layer] = (1 << 25) + 1 if layer < 5 else ((1 << 31) // JQ.exactness_bounds(p)[5] + 2) | 1
     bad = dataclasses.replace(p, mul=tuple(mul))
     with pytest.raises(ValueError, match=match) as port_err:
-        Q.MergedParams.from_engine(EngineParams.from_arrays(bad))
+        Q.MergedParams.from_engine(EngineParams.from_arrays(bad), "cpu")
     with pytest.raises(ValueError, match=match) as jax_err:
         JQ.MergedParams.from_engine(bad)
     assert str(port_err.value) == str(jax_err.value)
@@ -77,7 +77,7 @@ def test_fused_vectors_equal_packed_weights3(model):
     """FusedWeights' folded vectors are the untiled halves of the TPU
     kernel's phase-tiled [1, 2C] rows."""
     p = _params(model)
-    fw, pw = FusedWeights.from_engine(EngineParams.from_arrays(p)), PackedWeights3.from_engine(p)
+    fw, pw = FusedWeights.from_engine(EngineParams.from_arrays(p), "cpu"), PackedWeights3.from_engine(p)
     for i, (b, q, c) in enumerate(((pw.b1, pw.q1, 64), (pw.b2, pw.q2, 48), (pw.b3, pw.q3, 48))):
         assert (fw.bias[i].numpy() == np.asarray(b)[0, :c]).all()
         for mine, theirs in zip((fw.bound[i], fw.mul[i], fw.shift[i]), q):
@@ -97,9 +97,35 @@ def test_fused_weights_refuse_tables_outside_saturation_window(layer, sign):
     blu = list(p.blu_q)
     blu[layer] = int(blu[layer]) + sign * ((1 << int(shift[layer])) // int(mul[layer]) + 1)
     bad = dataclasses.replace(p, blu_q=blu)
-    Q.MergedParams.from_engine(bad)
+    Q.MergedParams.from_engine(bad, "cpu")
     with pytest.raises(ValueError, match="saturation window"):
-        FusedWeights.from_engine(bad)
+        FusedWeights.from_engine(bad, "cpu")
+
+
+@pytest.mark.parametrize("builder", [
+    "ModelParams.from_engine", "MergedParams.from_engine", "FusedWeights.from_engine",
+    "LiteralWeights.from_engine", "QVRCNN", "make_forward", "probe_inputs",
+    "mma_issue_reference",
+])
+def test_builders_take_no_default_device(builder):
+    """The forward builders and weight carriers have no default device: a
+    call without one raises TypeError instead of running on the CPU."""
+    from qcnn_gpu_tpu_torch.ops.literal import LiteralWeights
+    from qcnn_gpu_tpu_torch.tools import mma_probe
+
+    p = EngineParams.from_arrays(synth_engine_params(37))
+    call = {
+        "ModelParams.from_engine": lambda: Q.ModelParams.from_engine(p),
+        "MergedParams.from_engine": lambda: Q.MergedParams.from_engine(p),
+        "FusedWeights.from_engine": lambda: FusedWeights.from_engine(p),
+        "LiteralWeights.from_engine": lambda: LiteralWeights.from_engine(p),
+        "QVRCNN": lambda: Q.QVRCNN(p),
+        "make_forward": lambda: Q.make_forward(p),
+        "probe_inputs": lambda: mma_probe.probe_inputs("int8", 32, 8, grid=1, m=32),
+        "mma_issue_reference": lambda: mma_probe.mma_issue_reference("int8", 1),
+    }[builder]
+    with pytest.raises(TypeError, match="device"):
+        call()
 
 
 def test_port_imports_no_jax():

@@ -49,7 +49,7 @@ def jax_probe():
 def test_plain_matches_pallas_probe(jax_probe, name, kind, k, n):
     import jax.numpy as jnp
 
-    a, w = P.probe_inputs(kind, k, n, grid=GRID, m=M, seed=1)
+    a, w = P.probe_inputs(kind, k, n, grid=GRID, m=M, seed=1, device="cpu")
     jdt = {"int8": jnp.int8, "bf16": jnp.bfloat16, "f32": jnp.float32}[kind]
     acc = jnp.int32 if kind == "int8" else jnp.float32
     run = jax_probe.build(acc, n=n, k=k)
@@ -63,7 +63,7 @@ def test_plain_matches_pallas_probe(jax_probe, name, kind, k, n):
 
 def test_chain_depends_on_the_previous_step():
     """s moves the int8 weights: a chain without it differs."""
-    a, w = P.probe_inputs("int8", 32, 8, grid=1, m=32)
+    a, w = P.probe_inputs("int8", 32, 8, grid=1, m=32, device="cpu")
     got = P.mma_probe_reference(a, w)
     flat = sum(torch.bmm(a.double(), w[c].double()[None]) for c in range(P.CHAIN))
     assert not torch.equal(got, flat.to(torch.int32))
@@ -80,7 +80,7 @@ def test_issue_plain_version_and_counts():
 
 
 def test_wrapper_checks_inputs():
-    a, w = P.probe_inputs("int8", 96, 8, grid=1, m=32)
+    a, w = P.probe_inputs("int8", 96, 8, grid=1, m=32, device="cpu")
     with pytest.raises(ValueError, match="expected a"):
         P.mma_probe(a, w[:3])
     with pytest.raises(ValueError, match="share type"):

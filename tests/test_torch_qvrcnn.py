@@ -21,7 +21,7 @@ GEOS = [(1, 37, 53), (2, 13, 245), (3, 18, 250)]
 
 
 def _port(p, x, merged=True):
-    return Q.make_forward(EngineParams.from_arrays(p), merged=merged)(torch.from_numpy(x)).numpy()
+    return Q.make_forward(EngineParams.from_arrays(p), "cpu", merged=merged)(torch.from_numpy(x)).numpy()
 
 
 @pytest.mark.parametrize("merged", [True, False])
@@ -75,7 +75,7 @@ def test_row_col_valid_match_jax():
     ))
     pp = EngineParams.from_arrays(p)
     got = Q.residual_blu_merged(
-        torch.from_numpy(xp), Q.MergedParams.from_engine(pp),
+        torch.from_numpy(xp), Q.MergedParams.from_engine(pp, "cpu"),
         row_valid=torch.from_numpy(rv), col_valid=torch.from_numpy(cv),
     )
     assert (got.numpy() == want).all()
@@ -83,7 +83,7 @@ def test_row_col_valid_match_jax():
         jnp.asarray(xp), JQ.ModelParams.from_engine(p), "int", row_valid=jnp.asarray(rv),
     ))
     got_rows = Q.residual_blu(
-        torch.from_numpy(xp), Q.ModelParams.from_engine(pp), row_valid=torch.from_numpy(rv),
+        torch.from_numpy(xp), Q.ModelParams.from_engine(pp, "cpu"), row_valid=torch.from_numpy(rv),
     )
     assert (got_rows.numpy() == want_rows).all()
 
@@ -91,7 +91,7 @@ def test_row_col_valid_match_jax():
 def test_module_keeps_parameters_in_buffers():
     """Parameters are module buffers, the very tensors of the container
     the forward reads."""
-    m = Q.QVRCNN(EngineParams.from_arrays(synth_engine_params(37)))
+    m = Q.QVRCNN(EngineParams.from_arrays(synth_engine_params(37)), device="cpu")
     bufs = dict(m.named_buffers())
     assert {"w_i8_0", "b_i32_3", "blu_q_2", "mul_0"} <= set(bufs)
     mp = m.params
