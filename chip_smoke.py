@@ -35,9 +35,9 @@ nvcc each, all at once) and then:
        plain version at grid 2, then its tool (`tools/mma_probe`) end to
        end, which also prints the `mma.sync` issue ceiling (a measurement
        with no TPU counterpart, so not in the kernels line);
-  10   generation 1's entry point (`tools/bench_kernels`), then v3, v2
-       and v1 timed at 1080p batch 4 in turns (v3 v2 v1 v1 v2 v3), beside
-       their plain versions;
+  10   `tools/bench_kernels` (its literal launches on a line of their
+       own), then v3, v2 and v1 timed at 1080p batch 4 in turns (v3 v2 v1
+       v1 v2 v3), beside their plain versions;
   11   the streaming engine (engine/stream.py, engine/packed.py):
        phase 4's pipelined raw stream again under
        `torch.cuda.set_sync_debug_mode("error")` (no host sync in the
@@ -51,11 +51,28 @@ nvcc each, all at once) and then:
        per packed step, and its host seconds: send and receive, and their
        pack, predict, dispatch, fetch wait and decode); and `cli run
        --transport auto` on phase 4's frames, equal to phase 4, its
-       decision from 3 link and 3 device samples.
+       decision from 3 link and 3 device samples;
+  12   generation 1 as an engine program: phase 7's two tables outside the
+       saturation window through `cli run --impl kernel1` and `--impl
+       auto` on phase 4's frames (auto must serve `kernel1`; the literal
+       kernel launched, the fused kernel not; recon equal to the literal
+       plain version on the card), and `--impl kernel` on them exits 1
+       with the window message;
+  13   the dynamic path: a dynamic model from the QP37 model's weights
+       with seeded steps; `cli calibrate-dynamic` (the dynamic mode with
+       its b_adj dump, and the hybrid mode on the QP37 model) on 4 frames
+       of 416x240 and `cli validate` (report and feature dump) on the
+       first, once on the card and once on the CPU: equal text and equal
+       file bytes; then `cli calibrate-dynamic` on 4 of phase 4's
+       1920x1080 anchors on the card, and each forward's ms/frame there.
 
-Every path (phases 4, 8, 9, 10 and each of 11's) runs with the launch
-counts set to 0 just before it and read just after; a kernel of the path
-that was not launched fails the run. No phase catches an error: any
+The committed 1080p and class-A golden PSNRs need matplotlib's sample
+data, which the smoke does not assume: `tests/test_torch_golden.py`
+checks them (slow-marked, on the CPU).
+
+Every path (phases 4, 8, 9, 10, each of 11's and 12's) runs with the
+launch counts set to 0 just before it and read just after; a kernel of
+the path that was not launched fails the run. No phase catches an error: any
 failure exits non-zero. Without a GPU, or without the rest of the
 repository, it exits non-zero and prints no result.
 
@@ -69,6 +86,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -174,9 +192,13 @@ def main() -> int:
         fused_forward,
         fused_forward_reference,
     )
+    from qcnn_gpu_tpu_torch.data.model_files import write_dynamic_hwcn, write_static_qfp_vect_c
+    from qcnn_gpu_tpu_torch.models.engine_params import DynamicParams
+    from qcnn_gpu_tpu_torch.models.qvrcnn_dynamic import make_dynamic_forward, make_hybrid_forward
     from qcnn_gpu_tpu_torch.ops.literal import (
         LiteralWeights,
         literal_forward,
+        literal_forward_reference,
         literal_residual,
         literal_residual_reference,
     )
@@ -294,15 +316,17 @@ def main() -> int:
     write_yuv420(yuv["ori"], ori)
     write_yuv420(yuv["anchor"], anchor)
 
-    def cli_run(impl: str, transport: str = "raw", files=yuv):
+    def cli_run(impl: str, transport: str = "raw", files=yuv,
+                model=os.path.join(GOLDEN, "model_q37.data")):
         """`cli run` on the 16 frames; -> (launch counts, recon, record)."""
-        out = os.path.join(tmp, f"{impl}-{transport}-{os.path.basename(files['anchor'])}")
+        out = os.path.join(tmp, f"{impl}-{transport}-{os.path.basename(files['anchor'])}-"
+                                f"{os.path.basename(model)}")
         recon_path = os.path.join(out, "recon.yuv")
         zero_counts()
         rc = cli.main([
             "run", "--ori", files["ori"], "--anchor", files["anchor"],
             "--height", str(H), "--width", str(W), "--frames", str(n_frames),
-            "--model", os.path.join(GOLDEN, "model_q37.data"), "--qp", "37",
+            "--model", model, "--qp", "37",
             "--device", "cuda", "--impl", impl, "--transport", transport,
             "--out-dir", out, "--recon", recon_path,
         ])
@@ -443,13 +467,14 @@ def main() -> int:
     if launches["mma_probe"] <= 0:
         fail("tools/mma_probe launched the probe kernel no time")
 
-    # ---- phase 10: generation 1's entry point, then v3, v2 and v1 timed
+    # ---- phase 10: tools/bench_kernels, then v3, v2 and v1 timed
     # at 1080p batch 4 (the main path's batch) beside their plain versions
     zero_counts()
     bench_kernels.main([])
-    launches["qvrcnn_literal"] = counts()["qvrcnn_literal"]
-    if launches["qvrcnn_literal"] <= 0:
+    n_bench = counts()["qvrcnn_literal"]
+    if n_bench <= 0:
         fail("tools/bench_kernels launched the literal kernel no time")
+    print(f"tools/bench_kernels: literal kernel launches={n_bench}")
     b = 4
     xd = torch.from_numpy(frames(b, H, W, seed=b)).to(dev)
     lw37 = lws["golden-QP37"]
@@ -564,6 +589,116 @@ def main() -> int:
         fail(f"transport auto decided from fewer than 3 + 3 samples: {dec}")
     if launched_a["qvrcnn_fused"] <= 0 or not (recon_a == recon).all():
         fail("cli run --transport auto: no fused launch, or recon differs from raw")
+
+    # ---- phase 12: generation 1 as an engine program. Phase 7's tables
+    # outside the saturation window through cli run --impl kernel1 and
+    # --impl auto (which must pick generation 1), equal to the plain
+    # version on the card; --impl kernel refuses them. The kernels line
+    # reads the literal launches of the first table's --impl auto run
+    for label, table in (("C2_2 bound one step up", p_out), ("S1 bound raised by half", p_half)):
+        model = os.path.join(tmp, f"model_{label.split()[0]}_moved.data")
+        write_static_qfp_vect_c(model, table)
+        lw_t = LiteralWeights.from_engine(table, dev)
+        want = np.concatenate([
+            literal_forward_reference(torch.from_numpy(anchor[i:i + 4]).to(dev), lw_t).cpu().numpy()
+            for i in range(0, n_frames, 4)
+        ])
+        for impl in ("kernel1", "auto"):
+            launched, recon1, run1 = cli_run(impl, model=model)
+            if run1["impl"] != "kernel1" or launched["qvrcnn_literal"] <= 0 \
+                    or launched["qvrcnn_fused"] != 0 or not (recon1 == want).all():
+                fail(f"cli run --impl {impl}, {label}: impl {run1['impl']}, launches {launched}, "
+                     f"recon equal to the plain version: {bool((recon1 == want).all())}")
+            if impl == "auto":
+                launches.setdefault("qvrcnn_literal", launched["qvrcnn_literal"])
+            print(f"cli run --impl {impl}, table with the {label}: impl={run1['impl']}, literal "
+                  f"kernel launches={launched['qvrcnn_literal']}, fused 0, recon == plain "
+                  f"version; {run1['time_us'] / 1e3 / n_frames:.4f} ms/frame incl. H2D/D2H {card}")
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["run", "--ori", yuv["ori"], "--anchor", yuv["anchor"], "--height",
+                           str(H), "--width", str(W), "--frames", str(n_frames), "--model", model,
+                           "--qp", "37", "--device", "cuda", "--impl", "kernel",
+                           "--out-dir", os.path.join(tmp, "refused")])
+        if rc != 1 or "saturation window" not in err.getvalue():
+            fail(f"cli run --impl kernel on the table with the {label}: exit {rc}, "
+                 f"{err.getvalue()!r}")
+        print(f"cli run --impl kernel, {label}: exit 1, {err.getvalue().strip()[:100]}...")
+
+    # ---- phase 13: the dynamic path. A dynamic model from the QP37 model's
+    # weights with seeded steps; cli calibrate-dynamic (both modes, with the
+    # b_adj dump) and cli validate on 4 frames of 416x240, on the card and
+    # on the CPU: the files and the text must be equal. Then cli
+    # calibrate-dynamic on 4 of phase 4's 1920x1080 anchors on the card, and
+    # each forward's ms/frame there
+    dyn = DynamicParams([int(v) for v in np.random.default_rng(13).integers(2, 30, 6)],
+                        list(p37.weights), list(p37.biases))
+    dyn_model = os.path.join(tmp, "model_q37_dynamic.data")
+    write_dynamic_hwcn(dyn_model, dyn)
+    n_cal = 4
+    small = os.path.join(tmp, "calibrate_416x240.yuv")
+    write_yuv420(small, frames(n_cal, 240, 416, seed=13))
+
+    def calibrate(device, d, anchor_yuv, h, w):
+        """cli calibrate-dynamic in both modes into `d`; -> {mode: (text, s)}."""
+        os.makedirs(d)
+        got = {}
+        for mode, model in (("dynamic", dyn_model), ("hybrid", os.path.join(GOLDEN, "model_q37.data"))):
+            extra = ["--b-adj-out", os.path.join(d, "b_adj.data")] if mode == "dynamic" else []
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["calibrate-dynamic", "--mode", mode, "--model", model, "--anchor",
+                               anchor_yuv, "--height", str(h), "--width", str(w), "--frames",
+                               str(n_cal), "--out", os.path.join(d, f"max_u_{mode}.data"),
+                               "--device", device, *extra])
+            if rc != 0:
+                fail(f"cli calibrate-dynamic --mode {mode} --device {device} exited {rc}")
+            got[mode] = (out.getvalue().replace(d, "{dir}"), time.perf_counter() - t0)
+        return got
+
+    files, texts, secs = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        d = os.path.join(tmp, f"calibrate-{device}")
+        for mode, (text, sec) in calibrate(device, d, small, 240, 416).items():
+            texts[device, mode], secs[device, mode] = text, sec
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["validate", "--model", os.path.join(GOLDEN, "model_q37.data"),
+                           "--anchor", small, "--height", "240", "--width", "416",
+                           "--dump-features", os.path.join(d, "features.bin"), "--device", device])
+        if rc != 0:
+            fail(f"cli validate --device {device} exited {rc}")
+        texts[device, "validate"] = out.getvalue().replace(d, "{dir}")
+        for name in sorted(os.listdir(d)):
+            with open(os.path.join(d, name), "rb") as fp:
+                files[device, name] = fp.read()
+    for key in ("dynamic", "hybrid", "validate"):
+        if texts["cuda", key] != texts["cpu", key]:
+            fail(f"cli {key}: the text on cuda differs from the CPU's")
+    for (device, name), data in files.items():
+        if device == "cuda" and (not data or files.get(("cpu", name)) != data):
+            fail(f"{name}: the card's bytes differ from the CPU's (or are empty)")
+    print(f"dynamic path: cli calibrate-dynamic (dynamic, hybrid) on {n_cal} frames of "
+          f"416x240 and cli validate on the first: text and files ({', '.join(f'{n} {len(b)} B' for (dv, n), b in sorted(files.items()) if dv == 'cuda')}) "
+          f"equal on cuda and cpu; {texts['cuda', 'dynamic'].strip()}")
+    for mode in ("dynamic", "hybrid"):
+        print(f"cli calibrate-dynamic --mode {mode} on {n_cal} frames of 416x240: "
+              f"{1e3 * secs['cuda', mode] / n_cal:.1f} ms/frame on cuda, "
+              f"{1e3 * secs['cpu', mode] / n_cal:.1f} on cpu (whole command) {card}")
+    for mode, (text, sec) in calibrate("cuda", os.path.join(tmp, "calibrate-1080p"),
+                                       yuv["anchor"], H, W).items():
+        print(f"cli calibrate-dynamic --mode {mode} on {n_cal} frames of {H}x{W} on cuda: "
+              f"{1e3 * sec / n_cal:.1f} ms/frame (whole command); {text.strip()} {card}")
+    xd = torch.from_numpy(anchor[:1]).to(dev)
+    for mode, run in (("dynamic", make_dynamic_forward(dyn, device=dev)),
+                      ("hybrid", make_hybrid_forward(p37, device=dev))):
+        run(xd)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            run(xd)  # reads its telemetry back: one sync per call
+        print(f"{mode} forward on cuda, one {H}x{W} frame: "
+              f"{1e3 * (time.perf_counter() - t0) / 5:.3f} ms/frame {card}")
     tmp_dir.cleanup()
 
     # least time for the same work: operations over the int8 peak, bytes

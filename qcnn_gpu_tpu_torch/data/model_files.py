@@ -3,9 +3,10 @@
 Mirrors `qcnn_gpu_tpu/data/model_files.py`: `_warn_if_residual_zeroed`
 (:40-60), the VECT_C layout helpers (:68-93), the static qfp readers and
 writers in the HWCN, NCHW_VECT_C and per-channel layouts with
-`read_static_qfp_auto` (:118-257), and `append_psnr_record` /
-`read_psnr_goldens` (:412-420), with the same messages and exceptions.
-The dynamic and float formats belong to later slices.
+`read_static_qfp_auto` (:118-257), the dynamic formats
+`read/write_dynamic_hwcn` and `read/write_dynamic_vect_c` (:265-340), and
+`append_psnr_record` / `read_psnr_goldens` (:412-420), with the same
+messages and exceptions. The float formats belong to a later slice.
 
 All integers little-endian; layer order C1, C2_1, C2_2, C3_1, C3_2, C4.
 """
@@ -18,7 +19,7 @@ from typing import BinaryIO, Union
 
 import numpy as np
 
-from qcnn_gpu_tpu_torch.models.engine_params import EngineParams
+from qcnn_gpu_tpu_torch.models.engine_params import DynamicParams, EngineParams
 from qcnn_gpu_tpu_torch.models.topology import QVRCNN_LAYERS
 
 PathOrIO = Union[str, BinaryIO]
@@ -202,6 +203,79 @@ def read_static_qfp_auto(path: str) -> EngineParams:
     if magic == STATIC_QFP_PC_MAGIC:
         return read_static_qfp_pc(path)
     return read_static_qfp_vect_c(path)
+
+
+# ---- dynamic model format (stepw, w, b per layer — cnn.cu:69-89) ----------
+
+
+def read_dynamic_hwcn(path: PathOrIO) -> DynamicParams:
+    """Per layer: stepw int32, w int8[k*k*cin*cout] HWCN, b int32[cout]."""
+    fp, close = _open(path, "rb")
+    try:
+        steps, ws, bs = [], [], []
+        for layer in QVRCNN_LAYERS:
+            k, cin, cout = layer.ksize, layer.in_ch, layer.out_ch
+            (stepw,) = struct.unpack("<i", fp.read(4))
+            w = np.frombuffer(fp.read(k * k * cin * cout), dtype=np.int8).reshape(
+                k, k, cin, cout
+            )
+            b = np.frombuffer(fp.read(4 * cout), dtype="<i4").astype(np.int32)
+            steps.append(stepw)
+            ws.append(w.copy())
+            bs.append(b)
+        return DynamicParams(steps, ws, bs)
+    finally:
+        if close:
+            fp.close()
+
+
+def write_dynamic_hwcn(path: PathOrIO, p: DynamicParams) -> None:
+    fp, close = _open(path, "wb")
+    try:
+        for i in range(6):
+            fp.write(struct.pack("<i", p.step_w[i]))
+            fp.write(np.ascontiguousarray(p.weights[i], dtype=np.int8).tobytes())
+            fp.write(np.asarray(p.biases[i], dtype="<i4").tobytes())
+    finally:
+        if close:
+            fp.close()
+
+
+def read_dynamic_vect_c(path: PathOrIO) -> DynamicParams:
+    """The engine-side dynamic NCHW_VECT_C file: per layer [stepw int32]
+    [w int8 k*k*ceil4(cin)*cout NCHW_VECT_C][b int32*cout] (qvrcnn.cu:398-414,
+    read back by load_para, cnn.cu:69-89)."""
+    fp, close = _open(path, "rb")
+    try:
+        steps, ws, bs = [], [], []
+        for layer in QVRCNN_LAYERS:
+            k, cin, cout = layer.ksize, layer.in_ch, layer.out_ch
+            (stepw,) = struct.unpack("<i", fp.read(4))
+            nbytes = k * k * _ceil4(cin) * cout
+            v = np.frombuffer(fp.read(nbytes), dtype=np.int8).reshape(
+                cout, _ceil4(cin) // 4, k, k, 4
+            )
+            b = np.frombuffer(fp.read(4 * cout), dtype="<i4").astype(np.int32)
+            steps.append(stepw)
+            ws.append(nchw_vect_c_to_hwcn(v, cin))
+            bs.append(b)
+        return DynamicParams(steps, ws, bs)
+    finally:
+        if close:
+            fp.close()
+
+
+def write_dynamic_vect_c(path: PathOrIO, p: DynamicParams) -> None:
+    fp, close = _open(path, "wb")
+    try:
+        for i in range(6):
+            fp.write(struct.pack("<i", p.step_w[i]))
+            v = hwcn_to_nchw_vect_c(np.asarray(p.weights[i], dtype=np.int8))
+            fp.write(np.ascontiguousarray(v).tobytes())
+            fp.write(np.asarray(p.biases[i], dtype="<i4").tobytes())
+    finally:
+        if close:
+            fp.close()
 
 
 def read_psnr_goldens(path: str) -> np.ndarray:

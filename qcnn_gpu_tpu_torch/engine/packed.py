@@ -17,6 +17,15 @@ capacity overflow raises (D2H) or takes the dense fetch (duplex). The
 NumPy functions here define the semantics; the transport runs their C++
 copies (`qcnn_gpu_tpu_torch/native`), which the tests hold equal.
 
+One departure from the JAX duplex, on purpose. JAX sends a step packed
+whenever the packed H2D payload alone is under raw's bytes
+(packed.py:443-462): it leaves out the block list that rides up with it
+(4 B a block) and never weighs the rows that come down (256 B a block,
++4), so a small frame could ship more than raw (262,148 B down against
+163,840 at 256x160, batch 4). Here a step whose packed H2D, block list
+included, or whose D2H rows would reach raw's bytes goes full. Where both
+pack, payloads and byte counts are JAX's.
+
 The device side is XLA in JAX and torch operations here, issued on the
 compute stream of the transport's `Staging`. None synchronises with the
 host: JAX's static-shape `nonzero(size=k)` is a cumsum compaction into a
@@ -306,6 +315,11 @@ def _core(run, anchor, prev_res):
     return (anchor[-1:], res[-1:]), rdp, rec
 
 
+def _fetch_bytes(kb: int) -> int:
+    """D2H bytes of a packed step that gathers `kb` blocks (`_fetchpack`)."""
+    return kb * BLK + 4
+
+
 def _fetchpack(rdp, buf, kn, kr, ke, kb):
     """The predicted residual-delta blocks as ONE u8 buffer,
     [rows int8 kb*256][overflow u8 x4]: `overflow` is set when a gathered
@@ -339,7 +353,8 @@ class DuplexTransport:
 
     Bit-exactness contract: receive(x, send(x)) == run(x) for every input
     and any interleaving of full and packed steps. The format's own
-    lossless fallbacks, content too hot (a full step) and an int8
+    lossless fallbacks, content too hot (a full step: packed bytes that
+    would reach raw's either way) and an int8
     overflow in the gathered deltas (a dense fetch), are counted in
     `stats`; any other failure raises."""
 
@@ -402,6 +417,11 @@ class DuplexTransport:
                 bidx_p = np.full(_bucket(bidx.size), nbp, np.int32)
                 bidx_p[: bidx.size] = bidx
                 self.stats["t_predict"].append(time.perf_counter() - t0)
+                # the block list rides up with the payload, and the rows come
+                # down: a packed step that would not beat raw both ways goes full
+                if (wire + bidx_p.nbytes >= x.nbytes
+                        or _fetch_bytes(bidx_p.size) >= x.nbytes):
+                    payload = None
         st = self.staging
         s = st.take()
         try:

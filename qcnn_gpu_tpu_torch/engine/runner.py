@@ -7,13 +7,19 @@ device. A program is the restorer for one (qp, device, program name):
                     "pallas" (no H100 table picks another generation yet)
   impl="kernel3"    the one-frame fused kernel, `ops/fused.fused_forward`
   impl="kernel2"    the frame-pair kernel, `ops/pair.pair_forward`
+  impl="kernel1"    the literal-requant kernel, `ops/literal.literal_forward`
   impl="reference"  the float64-exact reference net (models/qvrcnn.py)
-  impl="auto"       "kernel"
+  impl="auto"       chosen per model by its table: generation 3 inside the
+                    solver's saturation window (`ops/fused.window_refusal`),
+                    else generation 1 (`ops/literal.literal_refusal`), else
+                    a ValueError that names `--impl reference`
 
 A kernel runs as its CUDA kernel on a CUDA device and as its plain
-version on the CPU. The program name, and so the cache key and
-`RunRecord.impl`, is the generation that runs ("kernel2", "kernel3") or
-"reference"; "+duplex" is appended when the duplex transport served.
+version on the CPU. The program name (`program_name(qp)`), and so the
+cache key and `RunRecord.impl`, is the generation that runs ("kernel1",
+"kernel2", "kernel3") or "reference"; "+duplex" is appended when the
+duplex transport served. `auto` never falls back to the reference net,
+which would be a silent slow path: a table no kernel computes raises.
 
 `restore_stream` pipelines batches (engine/stream.py: pinned rings and
 copy/compute streams on CUDA) over one of three transports: "raw" (2 B/px
@@ -55,11 +61,12 @@ from qcnn_gpu_tpu_torch.engine.metrics import MetricsLog, RunRecord
 from qcnn_gpu_tpu_torch.engine.packed import DuplexTransport, make_duplex_restore, warm_batches
 from qcnn_gpu_tpu_torch.engine.stream import Staging, pipeline, pipeline_restore, writer
 from qcnn_gpu_tpu_torch.models.engine_params import EngineParams
-from qcnn_gpu_tpu_torch.models.qvrcnn import make_forward
-from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, fused_forward
+from qcnn_gpu_tpu_torch.models.qvrcnn import MergedParams, make_forward
+from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, fused_forward, window_refusal
+from qcnn_gpu_tpu_torch.ops.literal import LiteralWeights, literal_forward, literal_refusal
 from qcnn_gpu_tpu_torch.ops.pair import pair_forward
 
-IMPLS = ("auto", "kernel", "kernel2", "kernel3", "reference")
+IMPLS = ("auto", "kernel", "kernel1", "kernel2", "kernel3", "reference")
 TRANSPORTS = ("raw", "duplex", "auto")
 PROBE_SAMPLES = 3  # transport="auto" takes the best of 3 (ROADMAP, reference hazards)
 _READERS = {
@@ -67,7 +74,12 @@ _READERS = {
     "hwcn": read_static_qfp_hwcn,
     "pc": read_static_qfp_pc,  # per-channel INT4 extension
 }
-_GENERATIONS = {"kernel2": pair_forward, "kernel3": fused_forward}
+# generation -> (its forward, the keyword and carrier of its weights)
+_GENERATIONS = {
+    "kernel1": (literal_forward, "lw", LiteralWeights),
+    "kernel2": (pair_forward, "fw", FusedWeights),
+    "kernel3": (fused_forward, "fw", FusedWeights),
+}
 
 
 def read_model(path: str, fmt: str = "vect_c") -> EngineParams:
@@ -77,6 +89,23 @@ def read_model(path: str, fmt: str = "vect_c") -> EngineParams:
     if fmt not in _READERS:
         raise ValueError(f"unknown model format {fmt!r}")
     return _READERS[fmt](path)
+
+
+def _auto_generation(p: EngineParams) -> str:
+    """`auto`'s choice for a table: generation 3 where its folded epilogue
+    is exact, else generation 1; neither raises ValueError with both
+    reasons."""
+    mp = MergedParams.from_engine(p, "cpu")
+    why3 = window_refusal(mp)
+    if why3 is None:
+        return "kernel3"
+    why1 = literal_refusal(mp)
+    if why1 is None:
+        return "kernel1"
+    raise ValueError(
+        f"no kernel computes this table: generation 3: {why3}; generation 1: {why1}. "
+        "--impl reference computes it (the float64-exact reference net)"
+    )
 
 
 class Engine:
@@ -92,13 +121,14 @@ class Engine:
         if batch_frames < 1:
             raise ValueError(f"batch_frames must be >= 1, got {batch_frames}")
         self.device = torch.device(device)
-        self.impl = "kernel" if impl == "auto" else impl
+        self.impl = impl
         self.batch_frames = batch_frames
         self.metrics = MetricsLog(out_dir)
         # transport="auto": (qp, (H, W), batch) -> the probe's samples and choice
         self.transport_decisions: Dict[Tuple, dict] = {}
         self.last_stream: dict = {}  # the wire of the last restore_stream
         self._models: Dict[int, EngineParams] = {}
+        self._names: Dict[int, str] = {}  # qp -> the program that serves it
         self._programs: Dict[Tuple, Callable] = {}
         self._staging: Dict[Tuple, Staging] = {}  # (H, W, batch) -> pinned ring
         self._duplex: Dict[Tuple, DuplexTransport] = {}  # (qp, (H, W), batch)
@@ -109,27 +139,37 @@ class Engine:
 
     def set_model(self, qp: int, params: EngineParams) -> None:
         self._models[qp] = params
+        self._names.pop(qp, None)
         self._programs = {k: v for k, v in self._programs.items() if k[0] != qp}
         self._duplex = {k: v for k, v in self._duplex.items() if k[0] != qp}
 
-    @property
-    def program_name(self) -> str:
-        """The program that runs: "reference", or the kernel generation,
-        "kernel2" or "kernel3"."""
-        return "kernel3" if self.impl == "kernel" else self.impl
+    def _params(self, qp: int) -> EngineParams:
+        if qp not in self._models:
+            raise KeyError(f"no model loaded for QP{qp}")
+        return self._models[qp]
+
+    def program_name(self, qp: int) -> str:
+        """The program that serves QP `qp`: "reference", or the kernel
+        generation, "kernel1", "kernel2" or "kernel3". Under "auto" the
+        model's table decides; a table that neither generation 3 nor
+        generation 1 computes raises ValueError."""
+        if qp not in self._names:
+            if self.impl == "auto":
+                self._names[qp] = _auto_generation(self._params(qp))
+            else:
+                self._names[qp] = "kernel3" if self.impl == "kernel" else self.impl
+        return self._names[qp]
 
     def _program(self, qp: int) -> Callable:
-        name = self.program_name
+        name = self.program_name(qp)
         key = (qp, str(self.device), name)
         if key not in self._programs:
-            if qp not in self._models:
-                raise KeyError(f"no model loaded for QP{qp}")
-            p = self._models[qp]
+            p = self._params(qp)
             if name == "reference":
                 run = make_forward(p, device=self.device)
             else:
-                fw = FusedWeights.from_engine(p, self.device)
-                run = functools.partial(_GENERATIONS[name], fw=fw)
+                forward, kw, carrier = _GENERATIONS[name]
+                run = functools.partial(forward, **{kw: carrier.from_engine(p, self.device)})
             self._programs[key] = run
         return self._programs[key]
 
@@ -347,7 +387,7 @@ class Engine:
             psnr_before=yuv.psnr(anchor, ori),
             psnr_after=yuv.psnr(recon, ori),
             time_us=time_us,
-            impl=self.program_name + ("+duplex" if served == "duplex" else ""),
+            impl=self.program_name(qp) + ("+duplex" if served == "duplex" else ""),
             device=str(self.device),
             transport=dict(self.last_stream),
         )

@@ -202,13 +202,33 @@ class MergedParams:
         )
 
 
+# torch's float64 convolution on the CPU unfolds its whole input first
+# (im2col: cin * k * k * 8 B per output pixel, 12,800 B for C2, 26.5 GB for
+# one 1080p frame); conv_exact bounds that buffer by convolving row bands
+CPU_UNFOLD_BYTES = 1 << 28
+
+
 def conv_exact(x: torch.Tensor, w_hwio: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Integer SAME cross-correlation + bias: x NCHW (integer-valued, any
-    dtype), w int8 HWIO -> int64 NCHW accumulators, through float64."""
+    dtype), w int8 HWIO -> int64 NCHW accumulators, through float64. On
+    the CPU, one frame's row band at a time, each unfolding at most
+    CPU_UNFOLD_BYTES."""
     k = w_hwio.shape[0]
     w = w_hwio.to(torch.float64).permute(3, 2, 0, 1).contiguous()  # OIHW
-    u = F.conv2d(x.to(torch.float64), w, padding=k // 2)
-    return torch.round(u).to(torch.int64) + b.to(torch.int64).view(1, -1, 1, 1)
+    bias = b.to(torch.int64).view(1, -1, 1, 1)
+    n, cin, h, wd = x.shape
+    rows = max(1, CPU_UNFOLD_BYTES // (cin * k * k * 8 * wd))
+    if x.device.type != "cpu" or n * h <= rows:
+        return torch.round(F.conv2d(x.to(torch.float64), w, padding=k // 2)).to(torch.int64) + bias
+    p = k // 2
+    xp = F.pad(x, (p, p, p, p))
+    out = torch.empty((n, w.shape[0], h, wd), dtype=torch.int64)
+    for i in range(n):
+        for r0 in range(0, h, rows):
+            r1 = min(h, r0 + rows)
+            u = F.conv2d(xp[i:i + 1, :, r0:r1 + 2 * p].to(torch.float64), w)
+            out[i:i + 1, :, r0:r1] = torch.round(u).to(torch.int64)
+    return out + bias
 
 
 def _chan(v: Row) -> Row:
@@ -254,18 +274,32 @@ def residual_blu_merged(
     return final_residual_i32(u4, mp.mul4, mp.shift4)[:, 0]
 
 
+# the accumulators residual_blu's collector keeps, in layer order (the
+# oracle's forward_blu intermediates, oracle.py:250-262)
+U_NAMES = ("u1", "u2_1", "u2_2", "u3_1", "u3_2", "u4")
+
+
 def residual_blu(
     x_ppro: torch.Tensor,
     mp: ModelParams,
     row_valid: Optional[torch.Tensor] = None,
     col_valid: Optional[torch.Tensor] = None,
+    collect: Optional[dict] = None,
 ) -> torch.Tensor:
     """The literal 6-conv/2-concat core: x_ppro [N, H, W, 1] -> int64
-    residual [N, H, W], masked as residual_blu_merged."""
+    residual [N, H, W], masked as residual_blu_merged. With a `collect`
+    dict, it also keeps the intermediates as int64 NCHW tensors: the
+    accumulators U_NAMES and the requantized v1, conc1 and conc2."""
     mask = _valid_mask(row_valid, col_valid)
 
-    def layer(v, i):
+    def conv(v, i):
         u = conv_exact(v, mp.weights_i8[i], mp.biases_i32[i])
+        if collect is not None:
+            collect[U_NAMES[i]] = u
+        return u
+
+    def layer(v, i):
+        u = conv(v, i)
         return mask(
             blu_requant_i32(u, _chan(mp.blu_q[i]), _chan(mp.mul[i]), _chan(mp.shift[i]))
         )
@@ -273,7 +307,9 @@ def residual_blu(
     v1 = layer(mask(x_ppro.to(torch.int64).permute(0, 3, 1, 2)), 0)
     conc1 = torch.cat([layer(v1, 1), layer(v1, 2)], dim=1)
     conc2 = torch.cat([layer(conc1, 3), layer(conc1, 4)], dim=1)
-    u4 = conv_exact(conc2, mp.weights_i8[5], mp.biases_i32[5])
+    u4 = conv(conc2, 5)
+    if collect is not None:
+        collect.update(v1=v1, conc1=conc1, conc2=conc2)
     return final_residual_i32(u4, mp.mul[5], mp.shift[5])[:, 0]
 
 

@@ -228,6 +228,30 @@ def split_operand(w_merged) -> np.ndarray:
     return packed
 
 
+def window_refusal(mp: MergedParams) -> Optional[str]:
+    """Why the folded epilogue cannot compute this table, or None: the
+    first S1..S3 channel whose clip bound (blu_q + bias_pre) does not
+    requantize to exactly 127. The fold equals the literal BLU only there
+    (pallas_pipeline2._requant_fast): below, u > blu_q would give less than
+    127; above, u <= blu_q could give more than the folded min(., 127)
+    lets through."""
+    for i in range(3):
+        bound = mp.blu_q[i].numpy().astype(np.int64) + mp.bias_pre[i].numpy()
+        mul, shift = mp.mul[i].numpy().astype(np.int64), mp.shift[i].numpy().astype(np.int64)
+        top = (bound * mul) >> shift
+        off = np.flatnonzero(top != 127)
+        if off.size:
+            c = int(off[0])
+            return (
+                f"stage S{i + 1} channel {c}: (blu_q + bias_pre) * mul >> shift "
+                f"= {int(top[c])}, not 127 (blu_q={int(mp.blu_q[i][c])}, "
+                f"mul={int(mul[c])}, shift={int(shift[c])}); the folded "
+                "requant of the fused kernel is exact only inside the "
+                "solver's saturation window"
+            )
+    return None
+
+
 @dataclasses.dataclass(frozen=True)
 class FusedWeights:
     """Everything the fused kernel reads, on one device (counterpart of
@@ -254,6 +278,9 @@ class FusedWeights:
     @classmethod
     def from_engine(cls, p: EngineParams, device) -> "FusedWeights":
         mp = MergedParams.from_engine(p, "cpu")
+        why = window_refusal(mp)
+        if why is not None:
+            raise ValueError(why)
         device = torch.device(device)
         w = [x.numpy() for x in mp.w_i8]
         bias, bound, mul, shift = [], [], [], []
@@ -263,21 +290,6 @@ class FusedWeights:
             bound.append(mp.blu_q[i].numpy().astype(np.int64) + bp)
             mul.append(mp.mul[i].numpy())
             shift.append(mp.shift[i].numpy())
-            # The folded epilogue equals the literal BLU only when the clip
-            # bound requantizes to exactly 127 (pallas_pipeline2._requant_fast):
-            # below, u > blu_q would give less than 127; above, u <= blu_q
-            # could give more than the folded min(., 127) lets through.
-            top = (bound[i] * mul[i].astype(np.int64)) >> shift[i].astype(np.int64)
-            off = np.flatnonzero(top != 127)
-            if off.size:
-                c = int(off[0])
-                raise ValueError(
-                    f"stage S{i + 1} channel {c}: (blu_q + bias_pre) * mul >> shift "
-                    f"= {int(top[c])}, not 127 (blu_q={int(mp.blu_q[i][c])}, "
-                    f"mul={int(mul[i][c])}, shift={int(shift[i][c])}); the folded "
-                    "requant of the fused kernel is exact only inside the "
-                    "solver's saturation window"
-                )
         bias.append(mp.b_i32[3].numpy())
         vec = np.concatenate(
             [np.concatenate([bias[i], bound[i], mul[i], shift[i]]) for i in range(3)]

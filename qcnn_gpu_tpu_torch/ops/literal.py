@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +36,27 @@ KERNEL = "qvrcnn_literal"
 MAX_TILES_PER_LAUNCH = 2**31 - 1  # the kernel counts tiles in an int
 RESIDUAL_CLAMP = 255
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def literal_refusal(mp: MergedParams) -> Optional[str]:
+    """Why the literal kernel cannot compute this table, or None: a final
+    mul above 127 (the TPU kernel's assert, pallas_pipeline.py:184-186),
+    or a stage whose largest kept value ((blu_q + bias_pre) * mul) >> shift
+    exceeds 255 (the kernel holds activations as unsigned bytes)."""
+    if mp.mul4 > 127:
+        return f"final mul {mp.mul4} too large for int32 requant"
+    for i in range(3):
+        blu, mul, bias_pre, shift = (x[i].numpy().astype(np.int64)
+                                     for x in (mp.blu_q, mp.mul, mp.bias_pre, mp.shift))
+        top = ((blu + bias_pre) * mul) >> shift
+        if top.max() > 255:
+            c = int(np.argmax(top))
+            return (
+                f"stage S{i + 1} channel {c}: the largest kept value "
+                f"((blu_q + bias_pre) * mul) >> shift = {int(top[c])} exceeds 255, "
+                "the range of the literal kernel's uint8 activations"
+            )
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,21 +88,12 @@ class LiteralWeights:
     @classmethod
     def from_engine(cls, p: EngineParams, device) -> "LiteralWeights":
         mp = MergedParams.from_engine(p, "cpu")
-        if mp.mul4 > 127:
-            raise ValueError(f"final mul {mp.mul4} too large for int32 requant")
-        rows = []
-        for i in range(3):
-            r = [x[i].numpy().astype(np.int64)
+        why = literal_refusal(mp)
+        if why is not None:
+            raise ValueError(why)
+        rows = [[x[i].numpy().astype(np.int64)
                  for x in (mp.b_i32, mp.blu_q, mp.mul, mp.bias_pre, mp.shift)]
-            top = ((r[1] + r[3]) * r[2]) >> r[4]
-            if top.max() > 255:
-                c = int(np.argmax(top))
-                raise ValueError(
-                    f"stage S{i + 1} channel {c}: the largest kept value "
-                    f"((blu_q + bias_pre) * mul) >> shift = {int(top[c])} exceeds 255, "
-                    "the range of the literal kernel's uint8 activations"
-                )
-            rows.append(r)
+                for i in range(3)]
         device = torch.device(device)
         as_t = lambda a, dt: torch.as_tensor(np.asarray(a, dt), device=device)  # noqa: E731
         w = [x.numpy() for x in mp.w_i8]
@@ -153,3 +165,8 @@ literal_residual.launches = 0
 def literal_forward(x_u8: torch.Tensor, lw: LiteralWeights) -> torch.Tensor:
     """Restored uint8 frames: clip(x + literal_residual(x), 0, 255)."""
     return apply_residual_u8(x_u8, literal_residual(x_u8, lw))
+
+
+def literal_forward_reference(x_u8: torch.Tensor, lw: LiteralWeights) -> torch.Tensor:
+    """Plain PyTorch version of `literal_forward`."""
+    return apply_residual_u8(x_u8, literal_residual_reference(x_u8, lw))

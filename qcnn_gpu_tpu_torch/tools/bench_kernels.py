@@ -34,10 +34,9 @@ from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, fused_forward, fused_forw
 from qcnn_gpu_tpu_torch.ops.literal import (
     LiteralWeights,
     literal_forward,
-    literal_residual_reference,
+    literal_forward_reference,
 )
 from qcnn_gpu_tpu_torch.ops.pair import pair_forward, pair_forward_reference
-from qcnn_gpu_tpu_torch.ops.requant import apply_residual_u8
 from qcnn_gpu_tpu_torch.tools import events_ms, smi
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -51,7 +50,7 @@ def generations(p, device):
     lw = LiteralWeights.from_engine(p, device)
     return {
         "v1": (lambda x: literal_forward(x, lw),
-               lambda x: apply_residual_u8(x, literal_residual_reference(x, lw))),
+               lambda x: literal_forward_reference(x, lw)),
         "v2": (lambda x: pair_forward(x, fw), lambda x: pair_forward_reference(x, fw)),
         "v3": (lambda x: fused_forward(x, fw), lambda x: fused_forward_reference(x, fw)),
     }

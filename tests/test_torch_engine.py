@@ -1,17 +1,14 @@
 """The port's Engine and CLI `run` on the CPU, against the JAX Engine's
-output and metric files, and the committed golden PSNRs reproduced
-through the port. Restored frames: tolerance 0; PSNR: the goldens'
-+-0.01 dB."""
+output and metric files (the committed goldens through the port are in
+tests/test_torch_golden.py). Restored frames: tolerance 0."""
 
 import json
-import os
 
 import numpy as np
 import pytest
 import torch
 
 from qcnn_gpu_tpu.data import yuv
-from qcnn_gpu_tpu.data.golden import GOLDEN_DIR, QP_QUALITY, golden_clip, jpeg_anchor
 from qcnn_gpu_tpu.data.model_files import read_psnr_goldens, write_static_qfp_vect_c
 from qcnn_gpu_tpu.engine.runner import Engine as JEngine
 from qcnn_gpu_tpu.testing import synth_engine_params, synth_frames
@@ -119,25 +116,3 @@ def test_cuda_device_never_falls_back_to_cpu():
     eng.set_model(37, EngineParams.from_arrays(synth_engine_params(37)))
     with pytest.raises((RuntimeError, AssertionError)):
         eng.restore(np.zeros((1, 8, 8), np.uint8), 37)
-
-
-@pytest.fixture(scope="module")
-def eval_clip():
-    return golden_clip()[1]
-
-
-@pytest.mark.parametrize("model,fmt,golden,qp", [
-    ("model_q37.data", "vect_c", "psnr_golden.json", 37),
-    ("model_q22_int4.data", "pc", "psnr_golden_int4.json", 22),
-])
-def test_committed_models_reproduce_goldens(eval_clip, model, fmt, golden, qp):
-    """The committed trained models, decoding the committed JPEG anchor
-    bytes, reproduce the committed golden PSNRs through the port."""
-    with open(os.path.join(GOLDEN_DIR, golden)) as fp:
-        g = json.load(fp)["goldens"][str(qp)]
-    anchor = jpeg_anchor(eval_clip, QP_QUALITY[qp], tag="hopper_eval")
-    assert yuv.psnr(anchor, eval_clip) == pytest.approx(g["before"], abs=0.01)
-    eng = Engine(device="cpu")
-    eng.load_model(qp, os.path.join(GOLDEN_DIR, model), fmt=fmt)
-    after = yuv.psnr(eng.restore(anchor, qp), eval_clip)
-    assert after == pytest.approx(g["after"], abs=0.01)

@@ -167,11 +167,23 @@ def _duplex_case(name):
     """(port run, JAX run, batches, the params the oracle restores with or
     None for the JAX run's output, the JAX transport's capacity_frac): the
     cases of tests/test_packed.py:107-248."""
-    rng = np.random.default_rng({"chain": 5, "too_hot": 1, "dense": 4, "static": 3,
-                                 "one_pixel": 8, "pm255": 2}[name])
+    rng = np.random.default_rng({"chain": 5, "chain_static": 6, "too_hot": 1, "dense": 4,
+                                 "static": 3, "one_pixel": 8, "pm255": 2}[name])
     if name == "chain":  # odd width, video-like
         p = synth_engine_params(37)
         return _port_run(p), jax_make_forward(p, impl="int"), _video_like(3, 2, 32, 49, 5), p, 0.1
+    if name == "chain_static":  # odd width, a patch moving over a still background
+        p = synth_engine_params(37)
+        h, w, b = 64, 161, 2
+        bg = rng.integers(0, 256, (h, w), np.uint8)
+        batches = []
+        for j in range(3):
+            fr = np.broadcast_to(bg, (b, h, w)).copy()
+            for i in range(b):
+                x0 = 20 + 6 * (j * b + i)
+                fr[i, 30:36, x0:x0 + 6] = rng.integers(0, 256, (6, 6), np.uint8)
+            batches.append(fr)
+        return _port_run(p), jax_make_forward(p, impl="int"), batches, p, 1.0 / 256
     if name == "too_hot":  # uncorrelated frames: every batch ships full
         a = rng.integers(0, 256, (2, 64, 64), np.uint8)
         b = rng.integers(0, 256, (2, 64, 64), np.uint8)
@@ -227,29 +239,50 @@ def _duplex_case(name):
     return (lambda x: x.clone()), (lambda x: x), [x0, x1], None, 1.0 / 256
 
 
-@pytest.mark.parametrize("name", ["chain", "too_hot", "dense", "static", "one_pixel", "pm255"])
+@pytest.mark.parametrize("name", ["chain", "chain_static", "too_hot", "dense", "static",
+                                  "one_pixel", "pm255"])
 def test_duplex_transport_equals_jax(name):
-    """receive(x, send(x)) is the restorer's output, and the wire byte
-    lists and the step kinds equal those of JAX's DuplexTransport."""
+    """receive(x, send(x)) is the restorer's output. A step goes full where
+    JAX's does, and also where JAX packs but its packed bytes, block list
+    included, or the predicted rows it would fetch reach raw's (the port's
+    departure); every other step packs as JAX's does, with equal wire
+    bytes."""
     port_run, jax_run, batches, p, cf = _duplex_case(name)
     tr = P.make_duplex_restore(port_run, "cpu")
     jtr = JP.make_duplex_restore(jax_run, capacity_frac=cf)
-    kinds, jkinds = [], []
+    kinds, jkinds, expect = [], [], []
+    prev = None
     for x in batches:
         want = O.forward_blu(x, p) if p is not None else np.asarray(jax_run(x))
         item, jitem = tr.send(x), jtr.send(x)
         kinds.append(item[0])
         jkinds.append(jitem[0])
+        if jitem[0] == "full":
+            expect.append("full")
+        else:
+            refs = np.concatenate([prev, x[:-1]], axis=0)
+            kb = P._bucket(P._predict_changed_blocks(x, refs)[0].size)
+            hot = jtr.stats["h2d_bytes"][-1] >= x.nbytes or kb * P.BLK + 4 >= x.nbytes
+            expect.append("full" if hot else "packed")
+        prev = x[-1:]
         assert (tr.receive(x, item) == want).all()
         assert (jtr.receive(x, jitem) == want).all()
-    assert kinds == jkinds
-    assert tr.stats["h2d_bytes"] == jtr.stats["h2d_bytes"]
-    assert tr.stats["d2h_bytes"] == jtr.stats["d2h_bytes"]
+    assert kinds == expect
+    for i, (mine, theirs) in enumerate(zip(kinds, jkinds)):
+        raw = batches[i].nbytes
+        if mine == theirs:
+            assert tr.stats["h2d_bytes"][i] == jtr.stats["h2d_bytes"][i]
+            assert tr.stats["d2h_bytes"][i] == jtr.stats["d2h_bytes"][i]
+        else:
+            assert tr.stats["h2d_bytes"][i] == tr.stats["d2h_bytes"][i] == raw
     assert tr.stats["full_steps"] + tr.stats["packed_steps"] == len(batches)
-    if name == "too_hot":
-        assert kinds == ["full", "full"]
+    if name in ("too_hot", "chain"):  # chain: every packed step of JAX's ships more than raw
+        assert kinds == ["full"] * len(batches)
     else:
         assert kinds[0] == "full" and "packed" in kinds[1:]
+        packed = [i for i, k in enumerate(kinds) if k == "packed"]
+        assert all(tr.stats["h2d_bytes"][i] < batches[i].nbytes for i in packed)
+        assert all(tr.stats["d2h_bytes"][i] <= batches[i].nbytes for i in packed)
     assert tr.stats["dense_fetches"] == (1 if name == "dense" else 0)
     if name == "static":
         assert all(b < 0.6 * batches[0].nbytes for b in tr.stats["h2d_bytes"][1:])

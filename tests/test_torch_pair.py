@@ -110,7 +110,7 @@ def test_impl_runs_its_generation(impl, name):
     p = EngineParams.from_arrays(_synth(37))
     eng = Engine(device="cpu", impl=impl, batch_frames=2)
     eng.set_model(37, p)
-    assert eng.program_name == name
+    assert eng.program_name(37) == name
     x = _frames(3, 9, 11, seed=1)
     want = FU.fused_forward_reference(torch.from_numpy(x), FU.FusedWeights.from_engine(p, "cpu")).numpy()
     assert (eng.restore_stream(x, 37) == want).all()
@@ -126,12 +126,14 @@ def test_tpu_tuning_settings_never_reach_the_port(monkeypatch, tmp_path):
     monkeypatch.setenv("QCNN_KERNEL_KERNEL", "2")
     monkeypatch.setenv("QCNN_KERNEL_CONFIG", str(table))
     for impl in ("auto", "kernel"):
-        assert Engine(device="cpu", impl=impl).program_name == "kernel3"
+        eng = Engine(device="cpu", impl=impl)
+        eng.set_model(37, EngineParams.from_arrays(_synth(37)))
+        assert eng.program_name(37) == "kernel3"
 
 
 def test_unknown_impl_and_generation_raise():
     with pytest.raises(ValueError, match="impl must be one of"):
-        Engine(device="cpu", impl="kernel1")
+        Engine(device="cpu", impl="kernel4")
     with pytest.raises(ValueError, match="impl must be one of"):
         Engine(device="cpu", impl="pallas2")
 

@@ -145,13 +145,17 @@ def test_port_imports_no_jax():
         "    importlib.import_module(n)\n"
         "import chip_smoke\n"
         "assert sys.modules['jax'] is None and sys.modules['qcnn_gpu_tpu'] is None\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    names = set(out.stdout.split())
+    assert len(names) >= 20
+    assert {f"qcnn_gpu_tpu_torch.{m}" for m in (
+        "models.qvrcnn_dynamic", "engine.calibrate", "engine.validate", "data.golden", "testing",
+    )} <= names
 
 
 def _imported_modules(path):

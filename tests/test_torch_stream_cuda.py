@@ -19,6 +19,9 @@ from qcnn_gpu_tpu_torch.tools.profile import static_camera
 MODEL = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "assets", "golden", "model_q37.data")
 N, H, W = 9, 160, 256  # batches of 4: two full batches and a tail of 1
+# where the duplex's packed steps beat raw both ways (at 160x256 its
+# predicted rows alone would outweigh raw's bytes, so every step goes full)
+PACKS = (240, 416)
 
 
 def _cuda():
@@ -26,11 +29,11 @@ def _cuda():
         pytest.skip("needs an NVIDIA GPU: the streams and kernels have no CPU mode")
 
 
-def _scene(seed):
+def _scene(seed, h=H, w=W):
     """chip_smoke.py's static camera (a textured square moving over a
     fixed background), small: the residual deltas fit int8, so the
     packed steps fetch the predicted blocks only."""
-    return static_camera(N, H, W, seed)[1]
+    return static_camera(N, h, w, seed)[1]
 
 
 def _noise_scene(seed):
@@ -46,10 +49,10 @@ def _noise_scene(seed):
     return np.clip(frames + rng.integers(-6, 7, (H, W)), 0, 255).astype(np.uint8)
 
 
-def _engine(transport):
+def _engine(transport, h=H, w=W):
     eng = Engine(device="cuda", batch_frames=4)
     eng.load_model(37, MODEL)
-    eng.warmup(37, H, W, N, transport=transport)
+    eng.warmup(37, h, w, N, transport=transport)
     return eng
 
 
@@ -74,13 +77,29 @@ def test_every_transport_equals_restore(transport):
     for _ in range(2):  # the second stream continues the duplex carries
         assert (eng.restore_stream(frames, 37, transport=transport) == want).all()
     if transport == "duplex":
+        # at this size a packed step's predicted rows would outweigh raw's
+        # bytes: every step goes full, and the wire moves raw's bytes
         stream = eng.last_stream
-        # the sparse D2H served (wire bytes only shrink at larger frames:
-        # chip_smoke.py checks them at 1080p)
-        assert stream["packed_steps"] >= 1 and stream["dense_fetches"] < stream["packed_steps"]
+        assert stream["packed_steps"] == 0 and stream["full_steps"] == N // 4
+        assert stream["h2d_bytes"] == stream["d2h_bytes"] == frames.nbytes
     if transport == "auto":
         dec = eng.last_stream["auto"]
         assert len(dec["link_seconds"]) == len(dec["device_seconds"]) == 3
+
+
+@pytest.mark.cuda
+def test_duplex_packs_where_it_pays():
+    """At 416x240 the packed steps serve the sparse D2H, and the wire
+    moves fewer bytes than raw both ways."""
+    _cuda()
+    eng = _engine("duplex", *PACKS)
+    frames = _scene(1, *PACKS)
+    want = eng.restore(frames, 37)
+    for _ in range(2):
+        assert (eng.restore_stream(frames, 37, transport="duplex") == want).all()
+    stream = eng.last_stream
+    assert stream["packed_steps"] >= 1 and stream["dense_fetches"] < stream["packed_steps"]
+    assert stream["h2d_bytes"] < frames.nbytes and stream["d2h_bytes"] < frames.nbytes
 
 
 @pytest.mark.cuda
@@ -132,8 +151,8 @@ def test_producer_dispatch_does_not_synchronise():
     """Under set_sync_debug_mode("error") any host synchronisation in the
     raw and duplex streams (a hidden nonzero, a pageable copy) raises."""
     _cuda()
-    eng = _engine("duplex")
-    frames = _scene(3)
+    eng = _engine("duplex", *PACKS)
+    frames = _scene(3, *PACKS)
     want = eng.restore(frames, 37)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
