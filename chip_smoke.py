@@ -64,13 +64,29 @@ nvcc each, all at once) and then:
        of 416x240 and `cli validate` (report and feature dump) on the
        first, once on the card and once on the CPU: equal text and equal
        file bytes; then `cli calibrate-dynamic` on 4 of phase 4's
-       1920x1080 anchors on the card, and each forward's ms/frame there.
+       1920x1080 anchors on the card, and each forward's ms/frame there;
+  14   the training path at full width, through the CLI: the training
+       demo's data (12 clean 256x256 frames, DCT q=28 anchors, a held-out
+       pair from seed 99); `cli train` on the card, 300 steps of 64
+       patches of 64x64 at lr 1e-3 (the loss must fall), the train step's
+       ms against its float32 bound, and its first 3 steps on the card
+       and on the CPU (within the CPU tests' tolerance); `cli calibrate
+       --sample` on both devices (bounds within rtol 1e-4, the tables'
+       equality printed, one table's model file byte-equal across the
+       devices, the presets' files byte-equal); `cli finetune` (100
+       steps) and `cli eval-float`; the calibrated and the fine-tuned
+       models through `cli run --impl auto` on the held-out anchors (the
+       served kernel launched, recon equal to its plain version on the
+       card, INT8 PSNR against the anchors'); tiled float prediction
+       against the whole frame (pixels that differ, printed); and the
+       demo's byte target (ckpt-1500 and quant_table.data quantize to
+       assets/demo/model_q.data).
 
 The committed 1080p and class-A golden PSNRs need matplotlib's sample
 data, which the smoke does not assume: `tests/test_torch_golden.py`
 checks them (slow-marked, on the CPU).
 
-Every path (phases 4, 8, 9, 10, each of 11's and 12's) runs with the
+Every path (phases 4, 8, 9, 10, each of 11's, 12's and 14's) runs with the
 launch counts set to 0 just before it and read just after; a kernel of
 the path that was not launched fails the run. No phase catches an error: any
 failure exits non-zero. Without a GPU, or without the rest of the
@@ -699,6 +715,9 @@ def main() -> int:
             run(xd)  # reads its telemetry back: one sync per call
         print(f"{mode} forward on cuda, one {H}x{W} frame: "
               f"{1e3 * (time.perf_counter() - t0) / 5:.3f} ms/frame {card}")
+
+    # ---- phase 14: the training path at full width on the card
+    training_path(cli, tmp, card, zero_counts, counts, anchor)
     tmp_dir.cleanup()
 
     # least time for the same work: operations over the int8 peak, bytes
@@ -727,6 +746,221 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def training_path(cli, tmp: str, card: str, zero_counts, counts, anchor_1080p) -> None:
+    """Phase 14: the training path at full width on the card, through the
+    port's CLI: the demo's data, `train` (and its first steps on the CPU
+    too), `calibrate` on both devices, `finetune`, `eval-float`, the
+    trained model served by `cli run --impl auto`, and the demo's byte
+    target."""
+    import numpy as np
+    import torch
+
+    from qcnn_gpu_tpu_torch.data import yuv as Y
+    from qcnn_gpu_tpu_torch.data.datasets import PatchDataset
+    from qcnn_gpu_tpu_torch.data.model_files import write_static_qfp_vect_c
+    from qcnn_gpu_tpu_torch.engine.calibrate import quantize_model
+    from qcnn_gpu_tpu_torch.engine.runner import read_model
+    from qcnn_gpu_tpu_torch.models import float_model as FM
+    from qcnn_gpu_tpu_torch.models.topology import MACS_PER_PIXEL, QVRCNN_LAYERS
+    from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, fused_forward_reference
+    from qcnn_gpu_tpu_torch.ops.literal import LiteralWeights, literal_forward_reference
+    from qcnn_gpu_tpu_torch.quant.params import QuantTable
+    from qcnn_gpu_tpu_torch.testing import dct_compress, make_clean_frames
+    from qcnn_gpu_tpu_torch.tools import PEAK_FP32_FLOPS
+    from qcnn_gpu_tpu_torch.train.checkpoint import load_checkpoint
+    from qcnn_gpu_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "training")
+    os.makedirs(d)
+    dev = torch.device("cuda")
+
+    def run_cli(*argv):
+        """cli.main(argv) with its stdout kept; -> (stdout, seconds)."""
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([str(a) for a in argv])
+        if rc != 0:
+            fail(f"cli {' '.join(str(a) for a in argv)} exited {rc}")
+        return out.getvalue(), time.perf_counter() - t0
+
+    # (1) the demo's data (scripts/train_demo.py): 12 clean frames and their
+    # DCT q=28 anchors, and a held-out pair from seed 99, as YUV files
+    t0 = time.perf_counter()
+    side, lr, batch = 256, 1e-3, 64
+    clean = make_clean_frames(12, side, side)
+    anchor = dct_compress(clean, q=28.0)
+    clean_ev = make_clean_frames(4, side, side, seed=99)
+    anchor_ev = dct_compress(clean_ev, q=28.0)
+    files = {}
+    for name, y in (("ori", clean), ("anchor", anchor), ("ori_ev", clean_ev), ("anchor_ev", anchor_ev)):
+        files[name] = os.path.join(d, f"{name}.yuv")
+        Y.write_y_as_420(files[name], y)
+    print(f"training data: 12 clean {side}x{side} frames and DCT q=28 anchors (PSNR "
+          f"{Y.psnr(anchor, clean):.4f} dB), held-out 4 (anchor PSNR "
+          f"{Y.psnr(anchor_ev, clean_ev):.4f} dB); {time.perf_counter() - t0:.2f} s on the host")
+    geo = ["--height", side, "--width", side]
+    train_args = ["train", "--ori", files["ori"], "--anchor", files["anchor"], *geo, "--frames", 12,
+                  "--batch-size", batch, "--lr", lr]
+
+    # (2) cli train on the card at the reference's batch (64 patches of
+    # 64x64), lr 1e-3: the loss falls; ms/step against the float32 bound
+    steps = 300
+    ckpt = os.path.join(d, "ckpt")
+    out, secs = run_cli(*train_args, "--steps", steps, "--ckpt", ckpt, "--device", "cuda")
+    logged = [float(v) for v in re.findall(r"^step \d+: loss (\S+)", out, re.M)]
+    if len(logged) != steps // 10:
+        fail(f"cli train logged {len(logged)} losses in {steps} steps")
+    first, last = sum(logged[:20]) / 20, sum(logged[-20:]) / 20
+    if not last < first:
+        fail(f"cli train: the loss did not fall: first 20 logged {first:.4f}, last 20 {last:.4f}")
+    px = batch * 64 * 64
+    c1_macs = QVRCNN_LAYERS[0].ksize ** 2 * QVRCNN_LAYERS[0].in_ch * QVRCNN_LAYERS[0].out_ch
+    # forward, then the weight gradients (the same products) and the input
+    # gradients of every layer but C1
+    step_flops = 2 * (3 * MACS_PER_PIXEL - c1_macs) * px
+    bound_ms = step_flops / PEAK_FP32_FLOPS * 1e3
+    print(f"cli train --device cuda, {steps} steps of {batch}x64x64: mean loss of the first 20 "
+          f"logged steps {first:.4f}, of the last 20 {last:.4f}; whole command {secs:.2f} s = "
+          f"{1e3 * secs / steps:.3f} ms/step {card}")
+    ds = PatchDataset([(clean, anchor)], patch=64, seed=0)
+    batches = list(ds.batches(batch, 60))
+    tr = Trainer(TrainConfig(lr=lr, log_every=0), device=dev)
+    tr.fit_batches(batches[:10])  # warm-up (cuDNN's choices, the allocator)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.fit_batches(batches[10:])
+    torch.cuda.synchronize()
+    ms_step = 1e3 * (time.perf_counter() - t0) / 50
+    print(f"train step on cuda, {batch}x64x64 (host clock over 50 steps, H2D of each batch "
+          f"included): {ms_step:.4f} ms/step; bound {bound_ms:.4f} ms ({step_flops:.4g} FLOP over "
+          f"{PEAK_FP32_FLOPS:.3g} FLOP/s float32) {card}")
+
+    # (3) the first 3 steps on cuda and on the CPU from the same seed and
+    # batches: the CPU tests' tolerance
+    first3 = {}
+    for device in ("cuda", "cpu"):
+        c = os.path.join(d, f"first3-{device}")
+        out, secs3 = run_cli(*train_args, "--steps", 3, "--ckpt", c, "--device", device)
+        first3[device] = (float(re.search(r"last loss (\S+)", out).group(1)),
+                          load_checkpoint(c)[0], secs3)
+    (lc, pc, sc), (lh, ph, sh) = first3["cuda"], first3["cpu"]
+    diffs = np.concatenate([np.abs(pc[k] - ph[k]).ravel() for k in FM.PARAM_NAMES])
+    if abs(lc - lh) > 1e-4 * abs(lh) or diffs.max() > 2 * lr * 3 or np.median(diffs) > 1e-6:
+        fail(f"first 3 steps: loss {lc} on cuda, {lh} on cpu; params max |diff| {diffs.max():.3g}, "
+             f"median {np.median(diffs):.3g}")
+    print(f"cli train --steps 3 on cuda and cpu: last loss {lc:.6f} / {lh:.6f} (rel "
+          f"{abs(lc - lh) / abs(lh):.2e}), params max |diff| {diffs.max():.3g}, median "
+          f"{np.median(diffs):.3g}; {sc:.2f} s / {sh:.2f} s (whole commands) {card}")
+
+    # (4) cli calibrate --sample on both devices: bounds within rtol 1e-4;
+    # the tables equal or not (the solve jumps for small bound changes); the
+    # presets' table and model byte-equal; one table's model file equal
+    # whichever device the params went through
+    got = {}
+    for device in ("cuda", "cpu"):
+        paths = [os.path.join(d, f"{device}-{kind}.data") for kind in ("table", "model")]
+        out, secs_c = run_cli("calibrate", "--ckpt", ckpt, "--sample", files["anchor"], *geo,
+                              "--frames", 4, "--table-out", paths[0], "--model-out", paths[1],
+                              "--device", device)
+        bounds = [float(v) for v in out.splitlines()[0].removeprefix("blu bounds: ").split(", ")]
+        preset = [os.path.join(d, f"{device}-preset-{kind}.data") for kind in ("table", "model")]
+        run_cli("calibrate", "--ckpt", ckpt, "--qp", 37, "--table-out", preset[0], "--model-out",
+                preset[1], "--device", device)
+        got[device] = (bounds, [open(f, "rb").read() for f in paths + preset], secs_c, paths)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got["cuda"][0], got["cpu"][0]) if b)
+    same_table = got["cuda"][1][0] == got["cpu"][1][0]
+    if rel > 1e-4 or got["cuda"][1][2:] != got["cpu"][1][2:] or (
+            same_table and got["cuda"][1][1] != got["cpu"][1][1]):
+        fail(f"cli calibrate: bounds rel diff {rel:.3g}; preset files equal "
+             f"{got['cuda'][1][2:] == got['cpu'][1][2:]}")
+    table_path, model_cal = got["cuda"][3]
+    table = QuantTable.load_pickle(table_path)
+    params = load_checkpoint(ckpt)[0]
+    one_table = {}
+    for device in ("cuda", "cpu"):
+        buf = io.BytesIO()
+        write_static_qfp_vect_c(buf, quantize_model(FM.FloatVRCNN(params, device=device).to_jax(),
+                                                    table))
+        one_table[device] = buf.getvalue()
+    if one_table["cuda"] != one_table["cpu"] or one_table["cuda"] != got["cuda"][1][1]:
+        fail("the model file from the card's table differs across the devices")
+    print(f"cli calibrate --sample (4 anchors): bounds on cuda {[round(b, 6) for b in got['cuda'][0]]}, "
+          f"max rel diff to the CPU's {rel:.2e}; tables equal: {same_table}; model files from the "
+          f"card's table byte-equal on both devices; presets' table and model byte-equal; "
+          f"{got['cuda'][2]:.2f} s on cuda, {got['cpu'][2]:.2f} s on cpu (whole commands) {card}")
+
+    # (5) cli finetune (100 steps on the card's table's grid) and eval-float
+    model_ft = os.path.join(d, "model_q_ft.data")
+    out, secs_f = run_cli("finetune", "--ckpt", ckpt, "--table", table_path, "--ori", files["ori"],
+                          "--anchor", files["anchor"], *geo, "--frames", 12, "--steps", 100,
+                          "--batch-size", batch, "--model-out", model_ft, "--device", "cuda")
+    print(f"cli finetune --device cuda, 100 steps of {batch}x64x64: {secs_f:.2f} s = "
+          f"{10 * secs_f:.3f} ms/step (whole command); {out.strip()} {card}")
+    for c in (ckpt, ckpt + "_qfp"):
+        out, secs_e = run_cli("eval-float", "--ckpt", c, "--ori", files["ori_ev"], "--anchor",
+                              files["anchor_ev"], *geo, "--frames", 4, "--out-dir", d,
+                              "--device", "cuda")
+        print(f"cli eval-float --device cuda {os.path.basename(c)} on the held-out 4: "
+              f"{out.strip()}; {secs_e:.2f} s {card}")
+
+    # (6) the trained models served: cli run --impl auto on the held-out
+    # anchors, launch counts zeroed before and read after, recon == the
+    # served kernel's plain version on the card
+    x = torch.from_numpy(anchor_ev).to(dev)
+    for label, model in (("calibrated", model_cal), ("fine-tuned", model_ft)):
+        out_dir = os.path.join(d, f"run-{label}")
+        recon_path = os.path.join(out_dir, "recon.yuv")
+        zero_counts()
+        rc = cli.main(["run", "--ori", files["ori_ev"], "--anchor", files["anchor_ev"],
+                       *[str(a) for a in geo], "--frames", "4", "--model", model, "--qp", "37",
+                       "--device", "cuda", "--impl", "auto", "--out-dir", out_dir,
+                       "--recon", recon_path])
+        launched = counts()
+        if rc != 0:
+            fail(f"cli run --impl auto on the {label} model exited {rc}")
+        with open(os.path.join(out_dir, "runs.jsonl")) as fp:
+            rec = json.loads(fp.readline())
+        served = rec["impl"].split("+")[0]
+        p = read_model(model)
+        if served == "kernel3":
+            kname, want = "qvrcnn_fused", fused_forward_reference(x, FusedWeights.from_engine(p, dev))
+        elif served == "kernel1":
+            kname, want = "qvrcnn_literal", literal_forward_reference(x, LiteralWeights.from_engine(p, dev))
+        else:
+            fail(f"cli run --impl auto served {rec['impl']!r}")
+        recon = read_y420(recon_path, 4, side, side)
+        if launched[kname] <= 0 or not (recon == want.cpu().numpy()).all():
+            fail(f"cli run --impl auto, {label} model: {kname} launches {launched[kname]}, recon "
+                 f"equal to the plain version: {bool((recon == want.cpu().numpy()).all())}")
+        print(f"cli run --impl auto, {label} model, 4 held-out {side}x{side} frames: served "
+              f"{served}, {kname} launches={launched[kname]}, recon == plain version on the card; "
+              f"INT8 PSNR {rec['psnr_after']:.4f} dB against anchor {rec['psnr_before']:.4f} dB "
+              f"({rec['psnr_after'] - rec['psnr_before']:+.4f}) {card}")
+
+    # (7) tiled float prediction against the whole frame on the card (cuDNN
+    # may pick another algorithm per tile shape): the pixels that differ
+    tp = FM.params_from_jax(params, dev)
+    for frames_in, tile in ((anchor_ev, 96), (anchor_1080p[:1], 768)):
+        whole = FM.predict_uint8(tp, frames_in).cpu().numpy()
+        tiled = FM.predict_uint8_tiled(tp, frames_in, tile=tile)
+        print(f"predict_uint8_tiled on cuda, {frames_in.shape} in {tile}x{tile} tiles: "
+              f"{int((whole != tiled).sum())} of {whole.size} pixels differ from the whole frame")
+
+    # (8) the demo's byte target on this machine
+    demo = os.path.join(HERE, "assets", "demo")
+    buf = io.BytesIO()
+    write_static_qfp_vect_c(buf, quantize_model(load_checkpoint(os.path.join(demo, "ckpt"))[0],
+                                                QuantTable.load_pickle(os.path.join(demo, "quant_table.data"))))
+    with open(os.path.join(demo, "model_q.data"), "rb") as fp:
+        if buf.getvalue() != fp.read():
+            fail("quantize_model(ckpt-1500, quant_table.data) differs from assets/demo/model_q.data")
+    print(f"demo byte target: quantize_model(ckpt-1500, quant_table.data) as vect_c == "
+          f"assets/demo/model_q.data ({len(buf.getvalue())} B)")
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

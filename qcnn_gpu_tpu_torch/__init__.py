@@ -3,7 +3,9 @@
 A second package beside `qcnn_gpu_tpu` (the JAX/Pallas reference). It runs
 the static INT8 restore path — model file -> Engine -> fused network ->
 restored uint8 Y frames, PSNR and metric logs — on one NVIDIA Hopper GPU,
-bit-exact to the integer contract of `qcnn_gpu_tpu.models.oracle`.
+bit-exact to the integer contract of `qcnn_gpu_tpu.models.oracle`; and
+the path that makes such a model: float training, calibration and the
+quantization-aware fine-tune.
 
 Layering (bottom -> top):
   models/topology.py, models/engine_params.py   the network and its integer parameters
@@ -21,12 +23,16 @@ Layering (bottom -> top):
                    stream.py: pipelined restore on pinned rings and CUDA
                    streams; packed.py: the packed and duplex wire
                    transports
-  cli.py           `run` and `sweep` entry points (`--transport`)
+  quant/           the quant tables and their fixed-point solver
+  models/float_model.py  the float VRCNN (training side, full float32)
+  train/           float training, the shadow-weight fine-tune, checkpoints
+  cli.py           `run`, `sweep`, `validate`, `calibrate-dynamic`, `train`,
+                   `calibrate`, `finetune` and `eval-float`
   tools/           profile, bench_kernels, mma_probe (run on a CUDA GPU)
 
 The port imports torch and nothing of jax or of the JAX package: what it
 needs of the JAX package's framework-neutral modules it keeps as its own
-copies (models/topology.py, models/engine_params.py, data/).
+copies (models/topology.py, models/engine_params.py, data/, quant/).
 """
 
 __version__ = "0.1.0"

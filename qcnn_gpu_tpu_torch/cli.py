@@ -10,6 +10,16 @@
     python -m qcnn_gpu_tpu_torch.cli calibrate-dynamic --model dyn.data \
         --anchor anchor.yuv --height 1080 --width 1920 --frames 4 \
         --out max_u_C1.data --b-adj-out b_adj.data
+    python -m qcnn_gpu_tpu_torch.cli train --ori o.yuv --anchor a.yuv \
+        --height 256 --width 256 --frames 12 --lr 1e-3 --steps 300 --ckpt ckpt
+    python -m qcnn_gpu_tpu_torch.cli calibrate --ckpt ckpt --sample a.yuv \
+        --height 256 --width 256 --frames 4 --table-out table.data \
+        --model-out model_q.data
+    python -m qcnn_gpu_tpu_torch.cli finetune --ckpt ckpt --table table.data \
+        --ori o.yuv --anchor a.yuv --height 256 --width 256 --frames 12 \
+        --steps 100 --model-out model_q_ft.data
+    python -m qcnn_gpu_tpu_torch.cli eval-float --ckpt ckpt --ori o.yuv \
+        --anchor a.yuv --height 256 --width 256 --frames 4
 
 Counterpart of `qcnn_gpu_tpu/cli.py` `run` (cmd_run, cli.py:27-65: load
 one static model, restore one sequence, print PSNR before/after and the
@@ -21,8 +31,15 @@ of an anchor or of synthetic frames, and optionally the feature dump) and
 `calibrate-dynamic` (cmd_calibrate_dynamic, cli.py:297-346: the dynamic
 path's per-frame max_u telemetry appended to `--out` as int32, and with
 `--b-adj-out` its adjusted biases; `--mode hybrid` runs the reference's
-hybrid forward on a static model instead), with the same flags, text and
-files, plus `--device`.
+hybrid forward on a static model instead), `train` (cmd_train,
+cli.py:132-160: float training from a YUV pair, checkpoint to --ckpt),
+`calibrate` (cmd_calibrate, cli.py:163-202: a checkpoint's table, from
+3-sigma BLU bounds on --sample frames or the QP's presets, and its model
+file), `finetune` (cmd_finetune, cli.py:205-244: the shadow-weight
+fine-tune on a table's grid, checkpoint to <ckpt>_qfp, optionally the
+vect_c model) and `eval-float` (cmd_eval_float, cli.py:247-274: the float
+model's PSNR on a sequence, appended to psnr.data / psnr_ori.data), with
+the same flags, text and files, plus `--device`.
 
 `--impl` picks the program: kernel = generation 3 (the counterpart of the
 JAX `pallas`), kernel1 / kernel2 / kernel3 = the literal-requant /
@@ -34,24 +51,48 @@ raw (2 B/px each way), duplex (block-sparse temporal deltas up, predicted
 residual-delta blocks down; for static-camera content), or auto (measure
 the link against the device rate, best of 3 samples each, and pick).
 
-One departure: `validate` and `calibrate-dynamic --mode hybrid` read a
-static model with `runner.read_model` in each of the three formats, where
-the JAX CLI reads a `pc` file with the hwcn reader.
+Departures from the JAX CLI:
+  * `validate` and `calibrate-dynamic --mode hybrid` read a static model
+    with `runner.read_model` in each of the three formats, where the JAX
+    CLI reads a `pc` file with the hwcn reader;
+  * `calibrate --per-channel` (or `--model-format pc`) raises ValueError
+    when given `--table-out`, or when not given `--model-out`: a
+    per-channel table has no pickle form and lands in the pc model file.
+    The JAX CLI skips --table-out and may print success having written
+    nothing;
+  * `calibrate --sample` prints the BLU bounds it measured, and `train`
+    its last step's loss (the table and the checkpoint cannot show them).
+`finetune` saves `<ckpt>_qfp` with a fresh optimizer state (count 0,
+zero moments), as the JAX CLI does (cli.py:238).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import struct
 import sys
 
 from qcnn_gpu_tpu_torch.data import model_files, yuv
+from qcnn_gpu_tpu_torch.data.datasets import PatchDataset, PrefetchLoader
 from qcnn_gpu_tpu_torch.data.manifest import JCTVC_SEQUENCES, load_manifest
 from qcnn_gpu_tpu_torch.engine import validate as V
-from qcnn_gpu_tpu_torch.engine.calibrate import calibrate_dynamic, save_b_adj
+from qcnn_gpu_tpu_torch.engine.calibrate import (
+    calibrate_blu_bounds,
+    calibrate_dynamic,
+    quantize_model,
+    save_b_adj,
+    solve_table,
+)
 from qcnn_gpu_tpu_torch.engine.runner import IMPLS, TRANSPORTS, Engine, read_model
+from qcnn_gpu_tpu_torch.models import float_model as FM
 from qcnn_gpu_tpu_torch.models.qvrcnn_dynamic import make_hybrid_forward
+from qcnn_gpu_tpu_torch.quant.params import QuantTable
+from qcnn_gpu_tpu_torch.quant.solver import BLU_INIT
 from qcnn_gpu_tpu_torch.testing import synth_frames
+from qcnn_gpu_tpu_torch.train.checkpoint import AdamState, load_checkpoint, save_checkpoint
+from qcnn_gpu_tpu_torch.train.finetune import quant_finetune
+from qcnn_gpu_tpu_torch.train.trainer import TrainConfig, Trainer
 
 MODEL_FORMATS = ["vect_c", "hwcn", "pc"]
 
@@ -134,6 +175,97 @@ def cmd_calibrate_dynamic(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    """Float training on --device from a YUV pair; the checkpoint goes to
+    --ckpt (resumed from it with --resume)."""
+    cfg = TrainConfig(lr=args.lr, batch_size=args.batch_size, epochs=args.epochs, seed=args.seed)
+    ds = PatchDataset.from_yuv([(args.ori, args.anchor, args.height, args.width)],
+                               frames=args.frames, patch=cfg.patch, seed=cfg.seed)
+    tr = Trainer(cfg, device=args.device, blu_ub=BLU_INIT[args.qp] if args.blu else None)
+    if args.resume:
+        tr.load_checkpoint(args.ckpt)
+    steps = args.steps or (ds.pieces // cfg.batch_size) * cfg.epochs
+    loss = tr.fit_batches(PrefetchLoader(ds.batches(cfg.batch_size, steps)),
+                          image_dir=args.image_dir)
+    tr.save_checkpoint(args.ckpt)
+    print(f"trained {steps} steps -> {args.ckpt}" + ("" if loss is None else f"; last loss {loss:.6f}"))
+    return 0
+
+
+def cmd_calibrate(args) -> int:
+    """A checkpoint's fixed-point table (3-sigma BLU bounds of the float
+    model on --sample frames on --device, else the QP's presets) to
+    --table-out, and its model file to --model-out."""
+    per_channel = args.per_channel or args.model_format == "pc"
+    if per_channel and (args.table_out is not None or not args.model_out):
+        raise ValueError(
+            "calibrate --per-channel: a per-channel table has no pickle form and lands in "
+            "the pc model file; give --model-out and no --table-out")
+    params, _, _ = load_checkpoint(args.ckpt)
+    blu = None
+    if args.sample:
+        sample = yuv.read_y(args.sample, args.height, args.width, args.frames)
+        blu = calibrate_blu_bounds(params, sample, device=args.device)
+        print("blu bounds: " + ", ".join(repr(b) for b in blu))
+    table = solve_table(params, blu_bounds=blu, qp=args.qp, wbits=args.wbits,
+                        per_channel=per_channel)
+    msgs = []
+    if not per_channel:
+        table_out = args.table_out or "quant_table.data"
+        table.save_pickle(table_out)
+        msgs.append(f"table -> {table_out}")
+    if args.model_out:
+        ep = quantize_model(params, table, wbits=args.wbits)
+        writer = {"pc": model_files.write_static_qfp_pc,
+                  "vect_c": model_files.write_static_qfp_vect_c,
+                  "hwcn": model_files.write_static_qfp_hwcn}
+        writer["pc" if per_channel else args.model_format](args.model_out, ep)
+        msgs.append(f"model -> {args.model_out}")
+    print(", ".join(msgs))
+    return 0
+
+
+def cmd_finetune(args) -> int:
+    """Shadow-weight quantization-aware fine-tune (model.py:170-233) on
+    --device: a float checkpoint and its table -> the grid checkpoint
+    <ckpt>_qfp, and optionally the vect_c model file."""
+    params, _, step0 = load_checkpoint(args.ckpt)
+    table = QuantTable.load_pickle(args.table)
+    ds = PatchDataset.from_yuv([(args.ori, args.anchor, args.height, args.width)],
+                               frames=args.frames, seed=0)
+    steps = args.steps or ds.pieces // args.batch_size
+    out = quant_finetune(params, table.stepw, PrefetchLoader(ds.batches(args.batch_size, steps)),
+                         device=args.device, blu_ub=BLU_INIT[args.qp], lr=args.lr)
+    save_checkpoint(args.ckpt + "_qfp", out, AdamState.zeros(out), step0 + steps)
+    if args.model_out:
+        model_files.write_static_qfp_vect_c(args.model_out, quantize_model(out, table))
+    print(f"finetuned {steps} steps -> {args.ckpt}_qfp"
+          + (f", model -> {args.model_out}" if args.model_out else ""))
+    return 0
+
+
+def cmd_eval_float(args) -> int:
+    """The float model's restoration of a sequence on --device (the test()
+    analog, model.py:257-297): PSNR before/after, appended as doubles to
+    psnr.data and psnr_ori.data in --out-dir."""
+    params, _, _ = load_checkpoint(args.ckpt)
+    ori = yuv.read_y(args.ori, args.height, args.width, args.frames)
+    anchor = yuv.read_y(args.anchor, args.height, args.width, args.frames)
+    blu_ub = BLU_INIT[args.qp] if args.blu else None
+    pred = FM.predict_uint8(FM.params_from_jax(params, args.device), anchor, blu_ub).cpu().numpy()
+    p_before, p_after = yuv.psnr(anchor, ori), yuv.psnr(pred, ori)
+    model_files.append_psnr_record(os.path.join(args.out_dir, "psnr.data"), p_after)
+    model_files.append_psnr_record(os.path.join(args.out_dir, "psnr_ori.data"), p_before)
+    print(f"PSNR: before net {p_before:.3f}\tafter net {p_after:.3f}")
+    return 0
+
+
+def _add_geometry(p) -> None:
+    p.add_argument("--height", type=int, required=True)
+    p.add_argument("--width", type=int, required=True)
+    p.add_argument("--frames", type=int, default=1)
+
+
 def _add_device_flag(p) -> None:
     p.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
 
@@ -153,9 +285,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("run", help="restore one sequence (testqvrcnn analog)")
     p.add_argument("--ori", required=True)
     p.add_argument("--anchor", required=True)
-    p.add_argument("--height", type=int, required=True)
-    p.add_argument("--width", type=int, required=True)
-    p.add_argument("--frames", type=int, default=1)
+    _add_geometry(p)
     p.add_argument("--model", required=True)
     p.add_argument("--qp", type=int, required=True)
     p.add_argument("--recon", default=None)
@@ -189,14 +319,77 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-format", default="vect_c", choices=MODEL_FORMATS,
                    help="static-qfp container for --mode hybrid")
     p.add_argument("--anchor", required=True)
-    p.add_argument("--height", type=int, required=True)
-    p.add_argument("--width", type=int, required=True)
-    p.add_argument("--frames", type=int, default=1)
+    _add_geometry(p)
     p.add_argument("--out", default="max_u_C1.data")
     p.add_argument("--mode", choices=["dynamic", "hybrid"], default="dynamic")
     p.add_argument("--b-adj-out", default=None, help="append save_b_adj telemetry here")
     _add_device_flag(p)
     p.set_defaults(fn=cmd_calibrate_dynamic)
+
+    p = sub.add_parser("train", help="float training")
+    p.add_argument("--ori", required=True)
+    p.add_argument("--anchor", required=True)
+    _add_geometry(p)
+    p.add_argument("--qp", type=int, default=37)
+    p.add_argument("--blu", action="store_true")
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--epochs", type=int, default=1)
+    p.add_argument("--steps", type=int, default=0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--ckpt", default="checkpoint")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--image-dir", default=None,
+                   help="dump input|output|target triplet PNGs at log steps "
+                        "(tf.summary.image analog, model.py:61-69)")
+    _add_device_flag(p)
+    p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("calibrate", help="solve quant table from a checkpoint")
+    p.add_argument("--ckpt", required=True)
+    p.add_argument("--qp", type=int, default=37)
+    p.add_argument("--sample", default=None, help="YUV file for 3-sigma BLU stats")
+    p.add_argument("--height", type=int, default=0)
+    p.add_argument("--width", type=int, default=0)
+    p.add_argument("--frames", type=int, default=1)
+    p.add_argument("--table-out", default=None,
+                   help="quant table pickle (default quant_table.data; refused "
+                        "with --per-channel)")
+    p.add_argument("--model-out", default=None)
+    p.add_argument("--model-format", default="vect_c", choices=MODEL_FORMATS)
+    p.add_argument("--wbits", type=int, default=8, choices=[4, 8],
+                   help="weight grid: 8 (reference) or 4 (INT4 stretch)")
+    p.add_argument("--per-channel", action="store_true",
+                   help="per-output-channel stepw + (mul, shift) (INT4 quality "
+                        "closure); the table lands in the 'pc' model file "
+                        "(--model-out, required)")
+    _add_device_flag(p)
+    p.set_defaults(fn=cmd_calibrate)
+
+    p = sub.add_parser("finetune", help="shadow-weight quant-aware fine-tune")
+    p.add_argument("--ckpt", required=True)
+    p.add_argument("--table", required=True, help="quant_params pickle")
+    p.add_argument("--ori", required=True)
+    p.add_argument("--anchor", required=True)
+    _add_geometry(p)
+    p.add_argument("--qp", type=int, default=37)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--steps", type=int, default=0)
+    p.add_argument("--model-out", default=None)
+    _add_device_flag(p)
+    p.set_defaults(fn=cmd_finetune)
+
+    p = sub.add_parser("eval-float", help="float-model sequence eval (test() analog)")
+    p.add_argument("--ckpt", required=True)
+    p.add_argument("--ori", required=True)
+    p.add_argument("--anchor", required=True)
+    _add_geometry(p)
+    p.add_argument("--qp", type=int, default=37)
+    p.add_argument("--blu", action="store_true")
+    p.add_argument("--out-dir", default=".")
+    _add_device_flag(p)
+    p.set_defaults(fn=cmd_eval_float)
     return ap
 
 

@@ -5,8 +5,11 @@ Mirrors `qcnn_gpu_tpu/data/model_files.py`: `_warn_if_residual_zeroed`
 writers in the HWCN, NCHW_VECT_C and per-channel layouts with
 `read_static_qfp_auto` (:118-257), the dynamic formats
 `read/write_dynamic_hwcn` and `read/write_dynamic_vect_c` (:265-340), and
+the float formats `read/write_float_hwcn` (the TF dump, model.py:318-340)
+and `read/write_float_nchw` (the FLOAT_CONFIG engine's file, cnn.cu:113-128)
+with `hwcn_to_nchw` / `nchw_to_hwcn` (:96-102, :341-411), and
 `append_psnr_record` / `read_psnr_goldens` (:412-420), with the same
-messages and exceptions. The float formats belong to a later slice.
+messages and exceptions.
 
 All integers little-endian; layer order C1, C2_1, C2_2, C3_1, C3_2, C4.
 """
@@ -15,7 +18,7 @@ from __future__ import annotations
 
 import struct
 import warnings
-from typing import BinaryIO, Union
+from typing import BinaryIO, List, Tuple, Union
 
 import numpy as np
 
@@ -73,6 +76,15 @@ def nchw_vect_c_to_hwcn(v: np.ndarray, c: int) -> np.ndarray:
     for c0 in range(c):
         out[:, :, c0, :] = np.moveaxis(v[:, c0 // 4, :, :, c0 % 4], 0, -1)
     return out
+
+
+def hwcn_to_nchw(w: np.ndarray) -> np.ndarray:
+    """[H,W,C,N] -> [N,C,H,W] (mat.cu:160-176)."""
+    return np.moveaxis(w, (0, 1, 2, 3), (2, 3, 1, 0)).copy()
+
+
+def nchw_to_hwcn(w: np.ndarray) -> np.ndarray:
+    return np.moveaxis(w, (0, 1, 2, 3), (3, 2, 0, 1)).copy()
 
 
 def read_static_qfp_hwcn(path: PathOrIO) -> EngineParams:
@@ -276,6 +288,54 @@ def write_dynamic_vect_c(path: PathOrIO, p: DynamicParams) -> None:
     finally:
         if close:
             fp.close()
+
+
+def _read_float(path: PathOrIO, nchw: bool) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    fp, close = _open(path, "rb")
+    try:
+        ws, bs = [], []
+        for layer in QVRCNN_LAYERS:
+            k, cin, cout = layer.ksize, layer.in_ch, layer.out_ch
+            w = np.frombuffer(fp.read(4 * k * k * cin * cout), dtype="<f4")
+            w = nchw_to_hwcn(w.reshape(cout, cin, k, k)) if nchw else w.reshape(k, k, cin, cout)
+            ws.append(w.astype(np.float32))
+            bs.append(np.frombuffer(fp.read(4 * cout), dtype="<f4").astype(np.float32))
+        return ws, bs
+    finally:
+        if close:
+            fp.close()
+
+
+def _write_float(path: PathOrIO, weights, biases, nchw: bool) -> None:
+    fp, close = _open(path, "wb")
+    try:
+        for w, b in zip(weights, biases):
+            w = np.asarray(w, dtype="<f4")
+            fp.write(np.ascontiguousarray(hwcn_to_nchw(w) if nchw else w).tobytes())
+            fp.write(np.asarray(b, dtype="<f4").tobytes())
+    finally:
+        if close:
+            fp.close()
+
+
+def read_float_hwcn(path: PathOrIO) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """TF `dump()` order: w1,b1,w2_1,b2_1,... raw float32, HWCN/HWIO."""
+    return _read_float(path, nchw=False)
+
+
+def write_float_hwcn(path: PathOrIO, weights, biases) -> None:
+    _write_float(path, weights, biases, nchw=False)
+
+
+def read_float_nchw(path: PathOrIO) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """Plain float NCHW engine file: per layer [w f32 NCHW][b f32*cout]
+    (the FLOAT_CONFIG engine's load_para, cnn.cu:113-128; produced by
+    model_HWCN2NCHW, qvrcnn.cu:444-463). Returned in HWCN/HWIO."""
+    return _read_float(path, nchw=True)
+
+
+def write_float_nchw(path: PathOrIO, weights, biases) -> None:
+    _write_float(path, weights, biases, nchw=True)
 
 
 def read_psnr_goldens(path: str) -> np.ndarray:

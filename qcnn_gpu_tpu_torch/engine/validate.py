@@ -7,20 +7,26 @@ the dump_feature analog (model.py:342-364): the six post-requant
 activation tensors of the first frame written as raw int32 arrays in layer
 order. Both read the intermediates of the port's literal reference net
 (`models/qvrcnn.residual_blu` with a collector) on a torch device, and give
-the JAX functions' text and bytes. `conv_validation`, which compares the
-float model's scaled accumulators, belongs to a later slice with the float
-model.
+the JAX functions' text and bytes. `conv_validation` (:35-106, the
+reference's conv_validation, model.py:366-383) runs the float model on the
+same device and compares each layer's float pre-activation, scaled into
+the integer domain by ratio_in/stepw, with the engine's exact accumulator
+from the same collector.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, List
 
 import numpy as np
 import torch
 
+from qcnn_gpu_tpu_torch.models import float_model as FM
 from qcnn_gpu_tpu_torch.models.engine_params import EngineParams
-from qcnn_gpu_tpu_torch.models.qvrcnn import ModelParams, residual_blu
+from qcnn_gpu_tpu_torch.models.qvrcnn import U_NAMES, ModelParams, residual_blu
+from qcnn_gpu_tpu_torch.models.topology import QVRCNN_LAYERS
+from qcnn_gpu_tpu_torch.quant.params import QuantTable
 
 # layer name, its accumulator, its requantized output where viewmem shows it
 _STAGES = (
@@ -76,3 +82,46 @@ def viewmem_report(p: EngineParams, frames: np.ndarray, *, device) -> str:
                 for r in inter[key][0, :5, :5, 0]:
                     lines.append("\t".join(str(int(v)) for v in r))
     return "\n".join(lines)
+
+
+@dataclasses.dataclass
+class LayerDiff:
+    name: str
+    max_abs_diff: float  # float-model-int-domain vs engine accumulator
+    mean_abs_diff: float
+    engine_corner: np.ndarray  # 5x5 corner of the engine value (viewmem)
+    float_corner: np.ndarray
+
+
+def conv_validation(
+    float_params: FM.Params,
+    table: QuantTable,
+    engine_params: EngineParams,
+    frames: np.ndarray,
+    *,
+    device,
+) -> List[LayerDiff]:
+    """Per-layer comparison of the float model's integer-scaled
+    accumulators vs the INT engine's exact accumulators, both on `device`.
+
+    The float value of layer L's pre-activation (activations clipped at
+    the table's blu_adj), multiplied by ratio_in/stepw (model.py:379-382),
+    should land within quantization error of the engine's accumulator u.
+    Large deviations localize numeric breakage to a layer."""
+    with torch.no_grad():
+        pre = FM.pre_activations(FM.params_from_jax(float_params, device), frames, table.blu_adj)
+    engine_u = _intermediates(engine_params, frames, device)
+    out = []
+    for i, layer in enumerate(QVRCNN_LAYERS):
+        row = table[i]
+        scaled = pre[layer.name].permute(0, 2, 3, 1).cpu().numpy() * (row.ratio / row.stepw)
+        eng = engine_u[U_NAMES[i]].astype(np.float64)
+        diff = np.abs(scaled - eng)
+        out.append(LayerDiff(
+            name=layer.name,
+            max_abs_diff=float(diff.max()),
+            mean_abs_diff=float(diff.mean()),
+            engine_corner=eng[0, :5, :5, 0].copy(),
+            float_corner=np.round(scaled[0, :5, :5, 0]).copy(),
+        ))
+    return out

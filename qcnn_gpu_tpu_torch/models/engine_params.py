@@ -6,8 +6,9 @@ Mirrors `EngineParams` of `qcnn_gpu_tpu/models/oracle.py:50-73` (fields and
 container lacks). Each `from_arrays` carries parameters across from any
 object with the same attributes (the JAX package's containers included)
 without importing it: scalar quant rows stay Python ints, per-channel rows
-become int64 vectors, as `oracle.py:91-95` keeps them. Calibration
-(`from_float`) belongs to a later slice.
+become int64 vectors, as `oracle.py:91-95` keeps them. `from_float`
+(oracle.py:76-106) quantizes float HWIO weights and biases with a quant
+table, in numpy and in the caller's dtype, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -63,6 +64,28 @@ class EngineParams:
             mul=[_row(v) for v in obj.mul],
             shift=[_row(v) for v in obj.shift],
         )
+
+    @classmethod
+    def from_float(cls, weights_f, biases_f, table, wbits: int = 8) -> "EngineParams":
+        """Quantize float HWIO weights/biases (numpy) onto the signed `wbits`
+        grid with a QuantTable: w_int = clip(round(w/stepw), -2^(b-1),
+        2^(b-1)-1) and b_int = round(b * ratio_in / stepw), the integer bias
+        the engine adds in the accumulator domain. The arithmetic stays in
+        the arrays' own dtype (float32 weights divided by a Python float
+        stay float32 under NumPy 2) and rounds half to even, as the JAX
+        package does, so both give the same integers. Per-channel rows
+        (LayerQuantVec) broadcast over the output-channel axis and stay
+        [out_ch] int64 vectors. wbits=4 is the INT4 stretch grid: its stepw
+        must come from stepw_from_weights(bits=4) for full-range use."""
+        lo, hi = -(1 << (wbits - 1)), (1 << (wbits - 1)) - 1
+        ws, bs, blus, muls, shifts = [], [], [], [], []
+        for wf, bf, row in zip(weights_f, biases_f, table):
+            ws.append(np.clip(np.round(wf / row.stepw), lo, hi).astype(np.int8))
+            bs.append(np.round(np.asarray(bf) * row.ratio / row.stepw).astype(np.int32))
+            blus.append(_row(row.blu_q))
+            muls.append(_row(row.mul))
+            shifts.append(_row(row.shift))
+        return cls(ws, bs, blus, muls, shifts)
 
 
 @dataclasses.dataclass

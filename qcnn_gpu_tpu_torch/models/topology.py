@@ -1,7 +1,7 @@
 """QVRCNN network topology — the port's own copy.
 
-Mirrors `qcnn_gpu_tpu/models/topology.py:19-59` (LayerDef, QVRCNN_LAYERS,
-QVRCNN_CONCATS, RECEPTIVE_RADIUS, MACS_PER_PIXEL). The 4-stage
+Mirrors `qcnn_gpu_tpu/models/topology.py:19-64` (LayerDef, QVRCNN_LAYERS,
+QVRCNN_CONCATS, RECEPTIVE_RADIUS, MACS_PER_PIXEL, weight_shape_hwio). The 4-stage
 variable-filter-size CNN predicting a residual over the decoded Y plane;
 all convs are stride-1 SAME cross-correlations.
 
@@ -46,3 +46,8 @@ RECEPTIVE_RADIUS = 6
 
 # Useful multiply-accumulates per output pixel (54,512).
 MACS_PER_PIXEL = sum(l.ksize * l.ksize * l.in_ch * l.out_ch for l in QVRCNN_LAYERS)
+
+
+def weight_shape_hwio(layer: LayerDef) -> Tuple[int, int, int, int]:
+    """Training-side HWIO (a.k.a. HWCN in the reference's file naming)."""
+    return (layer.ksize, layer.ksize, layer.in_ch, layer.out_ch)

@@ -1,12 +1,13 @@
 """Measurement tools for the port, run on a CUDA GPU, and what they
 share: the card as nvidia-smi names it, CUDA-event timing and the int8
-peak that bounds are taken against."""
+and float32 peaks that bounds are taken against."""
 
 from __future__ import annotations
 
 import subprocess
 
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8, data sheet
+PEAK_FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, data sheet
 
 
 def smi(fields: str = "name,power.limit") -> str:

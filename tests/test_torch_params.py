@@ -155,6 +155,8 @@ def test_port_imports_no_jax():
     assert len(names) >= 20
     assert {f"qcnn_gpu_tpu_torch.{m}" for m in (
         "models.qvrcnn_dynamic", "engine.calibrate", "engine.validate", "data.golden", "testing",
+        "quant.params", "quant.solver", "models.float_model", "data.datasets",
+        "train.checkpoint", "train.trainer", "train.finetune",
     )} <= names
 
 
