@@ -80,13 +80,33 @@ nvcc each, all at once) and then:
        card, INT8 PSNR against the anchors'); tiled float prediction
        against the whole frame (pixels that differ, printed); and the
        demo's byte target (ckpt-1500 and quant_table.data quantize to
-       assets/demo/model_q.data).
+       assets/demo/model_q.data);
+  15   the mesh path, on virtual meshes over cuda:0 (every shard a launch
+       of generation 3 with its frame bounds): (a) `make_sharded_forward`
+       at 1x4, 2x2, 1x8, 1x2x2, 2x2x2 and 4x1 on phase 4's anchors (batch 4, 8
+       at 2x2x2), equal to phase 4, each block's kernel output equal to
+       its plain version with the same bounds, dp*sp*sw launches a call;
+       phase 2's 240p cases of every kind at 1x2x2; (b) `cli run --mesh
+       1x4` on phase 4's frames and `--mesh 1x2x2 --transport duplex` on
+       phase 11's static camera (recon equal, `runs.jsonl` mesh and impl,
+       launches = (warm-up calls + batches) x shards); (c) `cli run
+       --config` with a 2x2 mesh; (d) `DistributedRunner` in 2 processes
+       on gloo, 4 frames each: both return the global 8, and its psnr is
+       the host PSNR to the last bit; (e) `auto` under a mesh refuses
+       phase 7's table outside the saturation window, naming `--impl
+       reference`, which serves it at 1x2 equal to the unsharded
+       reference net; (f) the unsharded kernel against 1x4, 2x2 and 1x2x2
+       at 1080p batch 4 in turns (u 1x4 2x2 1x2x2 1x2x2 2x2 1x4 u), with
+       the tile overhead each mesh implies, then u 4x1 4x1 u (four
+       launches of a frame each, no tile overhead: the launches' cost). Each of
+       phase 15's paths prints its own fused launches; the kernels line's
+       fused launches stay phase 4's run.
 
 The committed 1080p and class-A golden PSNRs need matplotlib's sample
 data, which the smoke does not assume: `tests/test_torch_golden.py`
 checks them (slow-marked, on the CPU).
 
-Every path (phases 4, 8, 9, 10, each of 11's, 12's and 14's) runs with the
+Every path (phases 4, 8, 9, 10, each of 11's, 12's, 14's and 15's) runs with the
 launch counts set to 0 just before it and read just after; a kernel of
 the path that was not launched fails the run. No phase catches an error: any
 failure exits non-zero. Without a GPU, or without the rest of the
@@ -107,8 +127,11 @@ import json
 import math
 import os
 import re
+import socket
+import subprocess
 import sys
 import tempfile
+import textwrap
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -333,10 +356,12 @@ def main() -> int:
     write_yuv420(yuv["anchor"], anchor)
 
     def cli_run(impl: str, transport: str = "raw", files=yuv,
-                model=os.path.join(GOLDEN, "model_q37.data")):
-        """`cli run` on the 16 frames; -> (launch counts, recon, record)."""
-        out = os.path.join(tmp, f"{impl}-{transport}-{os.path.basename(files['anchor'])}-"
-                                f"{os.path.basename(model)}")
+                model=os.path.join(GOLDEN, "model_q37.data"), extra=(), out=None):
+        """`cli run` on the 16 frames, with `extra` flags last (they win);
+        -> (launch counts, recon, record)."""
+        out = out or os.path.join(tmp, "-".join([
+            impl, transport, os.path.basename(files["anchor"]), os.path.basename(model),
+            *(a.strip("-").replace("/", "_") for a in extra)]))
         recon_path = os.path.join(out, "recon.yuv")
         zero_counts()
         rc = cli.main([
@@ -344,7 +369,7 @@ def main() -> int:
             "--height", str(H), "--width", str(W), "--frames", str(n_frames),
             "--model", model, "--qp", "37",
             "--device", "cuda", "--impl", impl, "--transport", transport,
-            "--out-dir", out, "--recon", recon_path,
+            "--out-dir", out, "--recon", recon_path, *extra,
         ])
         launched = counts()
         if rc != 0:
@@ -718,6 +743,11 @@ def main() -> int:
 
     # ---- phase 14: the training path at full width on the card
     training_path(cli, tmp, card, zero_counts, counts, anchor)
+
+    # ---- phase 15: the mesh path (virtual meshes over cuda:0)
+    mesh_path(cli_run, tmp, card, zero_counts, counts, models, fws, max_errs,
+              {"ori": ori, "anchor": anchor, "recon": recon, "static": static,
+               "recon_static": recon_sr, "outside": p_out})
     tmp_dir.cleanup()
 
     # least time for the same work: operations over the int8 peak, bytes
@@ -746,6 +776,264 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+# phase 15 (d): one rank of DistributedRunner on a 2x2 virtual mesh over
+# cuda:0; argv: repo, rank, world, port, work dir
+MESH_WORKER = textwrap.dedent("""
+    import json, sys
+    sys.path.insert(0, sys.argv[1])
+    import numpy as np
+    import torch
+    from qcnn_gpu_tpu_torch.engine.runner import read_model
+    from qcnn_gpu_tpu_torch.ops.fused import fused_forward
+    from qcnn_gpu_tpu_torch.parallel.distributed import DistributedRunner, initialize
+    from qcnn_gpu_tpu_torch.parallel.mesh import make_mesh
+
+    here, rank, world, port, d = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
+    initialize(f"tcp://127.0.0.1:{port}", world, rank)
+    dev = torch.device("cuda", 0)
+    runner = DistributedRunner(read_model(f"{here}/assets/golden/model_q37.data"),
+                               make_mesh(2, 2, devices=[dev] * 4), impl="auto")
+    local = np.array_split(np.load(f"{d}/anchor.npy"), world)[rank]
+    fused_forward.launches = 0
+    got = runner.restore(local)
+    launches = fused_forward.launches
+    np.save(f"{d}/rank{rank}.npy", got)
+    psnr = runner.psnr(np.array_split(got, world)[rank],
+                       np.array_split(np.load(f"{d}/ori.npy"), world)[rank])
+    with open(f"{d}/rank{rank}.json", "w") as fp:
+        json.dump({"psnr": psnr.hex(), "launches": launches, "impl": runner.run.impl,
+                   "frames": int(local.shape[0])}, fp)
+    torch.distributed.destroy_process_group()
+""")
+
+
+def tiles_per_frame(dims, h: int, w: int, halo: int = 6) -> int:
+    """Generation 3's 24x40 tiles for one frame cut over a (dp, sp, sw)
+    mesh (dims None: unsharded): every block is extended by the halo on
+    both sides of each split axis (a frame edge gets filler rows or
+    columns, also tiled)."""
+    if dims is None:
+        return -(-h // 24) * -(-w // 40)
+    _, sp, sw = dims
+    rows = h // sp + (2 * halo if sp > 1 else 0)
+    cols = w // sw + (2 * halo if sw > 1 else 0)
+    return sp * sw * -(-rows // 24) * -(-cols // 40)
+
+
+def mesh_path(cli_run, tmp: str, card: str, zero_counts, counts, models, fws, max_errs,
+              data) -> None:
+    """Phase 15: the mesh path on virtual meshes over cuda:0 (every shard a
+    launch of generation 3 with its frame bounds). (a) make_sharded_forward
+    at 1x4, 2x2, 1x8, 1x2x2, 2x2x2 and 4x1 on phase 4's anchors, each block's
+    kernel output against its plain version, and phase 2's 240p cases at
+    1x2x2; (b) cli run --mesh 1x4, and --mesh 1x2x2 --transport duplex on
+    phase 11's static camera; (c) cli run --config (2x2); (d)
+    DistributedRunner in 2 processes on gloo; (e) auto under a mesh on
+    phase 7's table outside the saturation window, and the reference net
+    at 1x2; (f) the unsharded kernel against 1x4, 2x2 and 1x2x2 in turns,
+    then against 4x1 (four launches, no tile overhead). Each path's fused
+    launches are counted around it, printed and checked on its own line."""
+    import numpy as np
+    import torch
+
+    from qcnn_gpu_tpu_torch.data import yuv as Y
+    from qcnn_gpu_tpu_torch.models.qvrcnn import make_forward
+    from qcnn_gpu_tpu_torch.ops.fused import fused_forward, fused_forward_reference
+    from qcnn_gpu_tpu_torch.parallel.mesh import make_mesh
+    from qcnn_gpu_tpu_torch.parallel.spatial import (
+        extended_blocks,
+        make_sharded_forward,
+        split_blocks,
+    )
+    from qcnn_gpu_tpu_torch.tools import events_ms
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    p37, fw37 = models["golden-QP37"], fws["golden-QP37"]
+    anchor, recon = data["anchor"], data["recon"]
+    n_frames = anchor.shape[0]
+    meshes = {"1x4": (1, 4, 1), "2x2": (2, 2, 1), "1x8": (1, 8, 1), "1x2x2": (1, 2, 2),
+              "2x2x2": (2, 2, 2), "4x1": (4, 1, 1)}
+
+    def mesh_of(dims):
+        return make_mesh(dims[0], dims[1], devices=[dev] * 8, sw=dims[2])
+
+    def err(a, b) -> int:
+        a, b = (torch.as_tensor(v).to(dev, torch.int16) for v in (a, b))
+        return int((a - b).abs().max())
+
+    def block_errs(xd, mesh, fw) -> int:
+        """Each halo-extended block: the kernel against its plain version
+        with the same frame bounds (comparison launches, not counted)."""
+        xe, bounds = extended_blocks(split_blocks(xd, mesh), 6, 128)
+        worst = 0
+        for idx in np.ndindex(xe.shape):
+            got = fused_forward(xe[idx], fw, *bounds[idx])
+            torch.cuda.synchronize()
+            worst = max(worst, err(got, fused_forward_reference(xe[idx], fw, *bounds[idx])))
+        return worst
+
+    # (a) make_sharded_forward(impl="auto") on phase 4's anchors
+    for label, dims in meshes.items():
+        b = 8 if label == "2x2x2" else 4
+        mesh = mesh_of(dims)
+        run = make_sharded_forward(p37, mesh, impl="auto")
+        xd = torch.from_numpy(anchor[:b]).to(dev)
+        zero_counts()
+        got = run(xd)
+        torch.cuda.synchronize()
+        n = counts()["qvrcnn_fused"]
+        shards = dims[0] * dims[1] * dims[2]
+        e_whole, e_plain = err(got, recon[:b]), block_errs(xd, mesh, fw37)
+        max_errs["qvrcnn_fused"] = max(max_errs["qvrcnn_fused"], e_plain)
+        t = tiles_per_frame(dims, H, W)
+        print(f"make_sharded_forward {label} ({run.impl}), {b}x{H}x{W}: fused launches={n} "
+              f"(dp*sp*sw = {shards}); vs phase 4's unsharded max_abs_err={e_whole}; each "
+              f"block vs its plain version max_abs_err={e_plain}; {t} tiles a frame "
+              f"({100 * (t / tiles_per_frame(None, H, W) - 1):+.1f}% on the unsharded "
+              f"{tiles_per_frame(None, H, W)})")
+        if n != shards or e_whole or e_plain or run.impl != "kernel3":
+            fail(f"sharded generation 3 at {label}: {n} launches, errors {e_whole}/{e_plain}")
+    geo = (2, 240, 416)
+    mesh = mesh_of(meshes["1x2x2"])
+    for name in ("golden-QP37", "golden-QP22-int4-pc"):
+        run = make_sharded_forward(models[name], mesh, impl="auto")
+        for kind in ("synth", "zeros", "255"):
+            x = frames(*geo, seed=sum(geo)) if kind == "synth" else np.full(
+                geo, 0 if kind == "zeros" else 255, np.uint8)
+            xd = torch.from_numpy(x).to(dev)
+            e_whole = err(run(xd), fused_forward(xd, fws[name]))
+            e_plain = block_errs(xd, mesh, fws[name])
+            max_errs["qvrcnn_fused"] = max(max_errs["qvrcnn_fused"], e_plain)
+            print(f"make_sharded_forward 1x2x2 {name} {geo} {kind}: vs the unsharded kernel "
+                  f"max_abs_err={e_whole}, each block vs its plain version max_abs_err={e_plain}")
+            if e_whole or e_plain:
+                fail(f"sharded generation 3 at 1x2x2 differs: {name} {geo} {kind}")
+
+    # (b) cli run --mesh: launches = (warm-up calls + batches) x shards, the
+    # warm-up streaming depth + 2 = 5 batches of zeros (and, for the duplex,
+    # as many warm batches), the stream 16 / 4 batches
+    calls_raw = 5 + n_frames // 4
+    runs_b = (
+        ("1x4", "raw", None, recon, calls_raw * 4),
+        ("1x2x2", "duplex", data["static"], data["recon_static"], (calls_raw + 5) * 4),
+    )
+    for label, transport, files, want, expect in runs_b:
+        kw = {"files": files} if files else {}
+        launched, got, rec = cli_run("auto", transport, extra=("--device", "cuda:0", "--mesh", label),
+                                     **kw)
+        n = launched["qvrcnn_fused"]
+        impl = "kernel3" + ("+duplex" if transport == "duplex" else "")
+        print(f"cli run --mesh {label} --transport {transport}: impl={rec['impl']}, mesh="
+              f"{rec['mesh']}, fused launches={n} (expected {expect}), recon == "
+              f"{'phase 11' if files else 'phase 4'}: {bool((got == want).all())}; "
+              f"{rec['time_us'] / 1e3 / n_frames:.4f} ms/frame incl. H2D/D2H {card}")
+        if n != expect or rec["mesh"] != label or rec["impl"] != impl or not (got == want).all():
+            fail(f"cli run --mesh {label} --transport {transport}: {rec['impl']} {rec['mesh']}, "
+                 f"{n} launches (expected {expect})")
+
+    # (c) cli run --config: a JSON file's mesh (2x2) replaces the flags
+    out = os.path.join(tmp, "config-run")
+    cfg = os.path.join(tmp, "engine.json")
+    with open(cfg, "w") as fp:
+        json.dump({"engine": {"mesh_dp": 2, "mesh_sp": 2, "out_dir": out}}, fp)
+    launched, got, rec = cli_run("auto", extra=("--device", "cuda:0", "--config", cfg), out=out)
+    n_c = launched["qvrcnn_fused"]
+    print(f"cli run --config (mesh_dp 2, mesh_sp 2): impl={rec['impl']}, mesh={rec['mesh']}, "
+          f"fused launches={n_c} (expected {calls_raw * 4}), recon == phase 4: "
+          f"{bool((got == recon).all())} {card}")
+    if n_c != calls_raw * 4 or rec["mesh"] != "2x2" or not (got == recon).all():
+        fail(f"cli run --config: {rec['mesh']}, {n_c} launches")
+
+    # (d) DistributedRunner across 2 processes (gloo), 4 frames each on a
+    # 2x2 virtual mesh over cuda:0: both return the global batch of 8
+    d = os.path.join(tmp, "distributed")
+    os.makedirs(d)
+    np.save(os.path.join(d, "anchor.npy"), anchor[:8])
+    np.save(os.path.join(d, "ori.npy"), data["ori"][:8])
+    script = os.path.join(d, "worker.py")
+    with open(script, "w") as fp:
+        fp.write(MESH_WORKER)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, script, HERE, str(r), "2", port, d],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [pr.communicate(timeout=300)[0] for pr in procs]
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    if any(pr.returncode for pr in procs):
+        fail(f"DistributedRunner workers exited {[pr.returncode for pr in procs]}: {logs}")
+    host_psnr = Y.psnr(recon[:8], data["ori"][:8])
+    for r in range(2):
+        got = np.load(os.path.join(d, f"rank{r}.npy"))
+        with open(os.path.join(d, f"rank{r}.json")) as fp:
+            rec = json.load(fp)
+        psnr = float.fromhex(rec["psnr"])
+        print(f"DistributedRunner rank {r} of 2 (gloo, 2x2 over cuda:0, {rec['frames']} frames): "
+              f"returned {got.shape}, == phase 4's unsharded: {bool((got == recon[:8]).all())}; "
+              f"fused launches={rec['launches']}; psnr {psnr!r} == host {host_psnr!r}: "
+              f"{psnr == host_psnr}")
+        if got.shape != (8, H, W) or not (got == recon[:8]).all() or psnr != host_psnr \
+                or rec["launches"] != 4 or rec["impl"] != "kernel3":
+            fail(f"DistributedRunner rank {r}: {rec}")
+    print(f"DistributedRunner, 2 processes: {time.perf_counter() - t0:.1f} s in all")
+
+    # (e) auto under a mesh refuses a table outside the saturation window;
+    # the reference net serves it, equal to the unsharded reference net
+    p_out = data["outside"]
+    try:
+        make_sharded_forward(p_out, mesh_of((1, 2, 1)), impl="auto")
+    except ValueError as e:
+        if "--impl reference" not in str(e):
+            fail(f"auto under a mesh, table outside the window: {e}")
+        print(f"make_sharded_forward auto, 1x2, table outside the window: ValueError "
+              f"{str(e)[:80]}...")
+    else:
+        fail("auto under a mesh accepted a table outside the saturation window")
+    xd = torch.from_numpy(frames(*geo, seed=15)).to(dev)
+    e_ref = err(make_sharded_forward(p_out, mesh_of((1, 2, 1)), impl="reference")(xd),
+                make_forward(p_out, device=dev)(xd))
+    print(f"make_sharded_forward reference 1x2 {geo}, table outside the window, vs the "
+          f"unsharded reference net: max_abs_err={e_ref}")
+    if e_ref:
+        fail("the sharded reference net differs from the unsharded one")
+
+    # (f) the unsharded kernel against 1x4, 2x2 and 1x2x2 at 1080p batch 4,
+    # CUDA events, 10 calls a turn, in turns u 1x4 2x2 1x2x2 1x2x2 2x2 1x4 u
+    xd = torch.from_numpy(frames(4, H, W, seed=4)).to(dev)
+    runs = {"u": lambda: fused_forward(xd, fw37)}
+    for label in ("1x4", "2x2", "1x2x2"):
+        run = make_sharded_forward(p37, mesh_of(meshes[label]), impl="auto")
+        runs[label] = lambda run=run: run(xd)
+    for fn in runs.values():
+        fn()
+    turns = {k: [] for k in runs}
+    for k in list(runs) + list(runs)[::-1]:
+        turns[k].append(events_ms(runs[k], 10))
+    # then u 4x1 4x1 u: four launches of one frame each and no tile
+    # overhead (an unsplit axis gets no halo), the launches' own cost
+    run = make_sharded_forward(p37, mesh_of(meshes["4x1"]), impl="auto")
+    runs["4x1"] = lambda: run(xd)
+    runs["4x1"]()
+    turns["4x1"] = []
+    for k in ("u", "4x1", "4x1", "u"):
+        turns[k].append(events_ms(runs[k], 10))
+    mean = {k: sum(v) / len(v) for k, v in turns.items()}
+    for k, v in turns.items():
+        t = tiles_per_frame(meshes.get(k), H, W) / tiles_per_frame(None, H, W) - 1
+        print(f"1080p batch 4, {'unsharded' if k == 'u' else 'mesh ' + k}, in turns: "
+              f"{mean[k] / 4:.4f} ms/frame ({' / '.join(f'{x / 4:.4f}' for x in v)}), "
+              f"{mean[k] / mean['u']:.4f} of unsharded; tile overhead {100 * t:+.1f}% {card}")
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
 
 
 def training_path(cli, tmp: str, card: str, zero_counts, counts, anchor_1080p) -> None:

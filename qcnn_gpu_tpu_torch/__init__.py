@@ -23,11 +23,15 @@ Layering (bottom -> top):
                    stream.py: pipelined restore on pinned rings and CUDA
                    streams; packed.py: the packed and duplex wire
                    transports
+  parallel/        device meshes, halo-exchange sharding (generation 3 under
+                   frame bounds) and DistributedRunner across processes
+  config.py        the JSON Config (engine, training, data settings)
   quant/           the quant tables and their fixed-point solver
   models/float_model.py  the float VRCNN (training side, full float32)
   train/           float training, the shadow-weight fine-tune, checkpoints
-  cli.py           `run`, `sweep`, `validate`, `calibrate-dynamic`, `train`,
-                   `calibrate`, `finetune` and `eval-float`
+  cli.py           `run` (`--mesh`, `--config`), `sweep`, `convert`,
+                   `validate`, `calibrate-dynamic`, `train`, `calibrate`,
+                   `finetune` and `eval-float`
   tools/           profile, bench_kernels, mma_probe (run on a CUDA GPU)
 
 The port imports torch and nothing of jax or of the JAX package: what it

@@ -3,8 +3,12 @@
     python -m qcnn_gpu_tpu_torch.cli run --ori ori.yuv --anchor anchor.yuv \
         --height 1080 --width 1920 --frames 16 --model model_q37.data \
         --qp 37 --device cuda --transport raw
+    python -m qcnn_gpu_tpu_torch.cli run ... --mesh 1x2x2 --device cuda:0
+    python -m qcnn_gpu_tpu_torch.cli run ... --config engine.json
     python -m qcnn_gpu_tpu_torch.cli sweep --data-root /data \
         --model-pattern models/model_q%d.data --qps 22,27,32,37
+    python -m qcnn_gpu_tpu_torch.cli convert --infile m.hwcn --informat hwcn \
+        --outfile m.vectc --outformat vect_c
     python -m qcnn_gpu_tpu_torch.cli validate --model model_q37.data \
         --dump-features feats.bin
     python -m qcnn_gpu_tpu_torch.cli calibrate-dynamic --model dyn.data \
@@ -23,9 +27,13 @@
 
 Counterpart of `qcnn_gpu_tpu/cli.py` `run` (cmd_run, cli.py:27-65: load
 one static model, restore one sequence, print PSNR before/after and the
-time, append the metric logs, optionally write the reconstruction),
-`sweep` (cmd_sweep, cli.py:68-82: the JCT-VC manifest or a JSON manifest
-over a list of QPs, one model per QP), `validate` (cmd_validate,
+time, append the metric logs, optionally write the reconstruction; with
+`--mesh DPxSP[xSW]` on a mesh, with `--config` from a JSON Config whose
+engine settings replace the flags), `sweep` (cmd_sweep, cli.py:68-82: the
+JCT-VC manifest or a JSON manifest over a list of QPs, one model per QP),
+`convert` (cmd_convert, cli.py:85-129: a model file into another format
+of its family, static, dynamic or float; across families it exits 2),
+`validate` (cmd_validate,
 cli.py:277-294: the viewmem report of the literal net on the first frame
 of an anchor or of synthetic frames, and optionally the feature dump) and
 `calibrate-dynamic` (cmd_calibrate_dynamic, cli.py:297-346: the dynamic
@@ -46,6 +54,10 @@ JAX `pallas`), kernel1 / kernel2 / kernel3 = the literal-requant /
 frame-pair / one-frame kernel, reference = the float64-exact reference
 net, auto = generation 3 inside the table's saturation window, else
 generation 1. On `--device cpu` a kernel runs as its plain version.
+`--mesh` shards the batch (parallel/spatial.py): "--device cuda" spreads
+the mesh over the visible CUDA devices, one device ("--device cuda:0",
+"cpu") carries every shard, a virtual mesh; under a mesh `auto` is
+generation 3 or raises, and kernel1 / kernel2 raise.
 `--transport` picks the wire of the pipelined stream (cli.py:388, :408):
 raw (2 B/px each way), duplex (block-sparse temporal deltas up, predicted
 residual-delta blocks down; for static-camera content), or auto (measure
@@ -73,6 +85,7 @@ import os
 import struct
 import sys
 
+from qcnn_gpu_tpu_torch.config import Config
 from qcnn_gpu_tpu_torch.data import model_files, yuv
 from qcnn_gpu_tpu_torch.data.datasets import PatchDataset, PrefetchLoader
 from qcnn_gpu_tpu_torch.data.manifest import JCTVC_SEQUENCES, load_manifest
@@ -87,6 +100,7 @@ from qcnn_gpu_tpu_torch.engine.calibrate import (
 from qcnn_gpu_tpu_torch.engine.runner import IMPLS, TRANSPORTS, Engine, read_model
 from qcnn_gpu_tpu_torch.models import float_model as FM
 from qcnn_gpu_tpu_torch.models.qvrcnn_dynamic import make_hybrid_forward
+from qcnn_gpu_tpu_torch.parallel.mesh import mesh_on, parse_mesh
 from qcnn_gpu_tpu_torch.quant.params import QuantTable
 from qcnn_gpu_tpu_torch.quant.solver import BLU_INIT
 from qcnn_gpu_tpu_torch.testing import synth_frames
@@ -98,7 +112,11 @@ MODEL_FORMATS = ["vect_c", "hwcn", "pc"]
 
 
 def cmd_run(args) -> int:
-    eng = Engine(device=args.device, impl=args.impl, out_dir=args.out_dir)
+    if args.config:
+        eng = Config.load(args.config).make_engine(device=args.device)
+    else:
+        mesh = mesh_on(args.device, *parse_mesh(args.mesh)) if args.mesh else None
+        eng = Engine(device=args.device, impl=args.impl, out_dir=args.out_dir, mesh=mesh)
     eng.load_model(args.qp, args.model, fmt=args.model_format)
     rec = eng.run_sequence(
         name=args.anchor,
@@ -115,7 +133,7 @@ def cmd_run(args) -> int:
         f"before net: PSNR={rec.psnr_before:.3f}\n"
         f"after quantized net: PSNR={rec.psnr_after:.3f}\n"
         f"time: {rec.time_us}us ({rec.fps:.1f} fps, impl={rec.impl}, "
-        f"transport={rec.transport['served']})"
+        f"transport={rec.transport['served']}{', mesh=' + rec.mesh if rec.mesh else ''})"
     )
     return 0
 
@@ -129,6 +147,50 @@ def cmd_sweep(args) -> int:
     for r in eng.run_manifest(specs, args.data_root, qps=qps, transport=args.transport):
         print(f"{r.sequence} QP{r.qp}: {r.psnr_before:.3f} -> {r.psnr_after:.3f} dB, "
               f"{r.fps:.1f} fps")
+    return 0
+
+
+CONVERT_FORMATS = {
+    # family -> {format: (reader, writer)} of data/model_files.py; a file
+    # converts within its family only (qvrcnn.cu:398-585): static qfp,
+    # dynamic and float each have an HWCN (training side) and an engine
+    # layout. pc -> a scalar format only where every row is single-valued.
+    "static": {
+        "hwcn": ("read_static_qfp_hwcn", "write_static_qfp_hwcn"),
+        "vect_c": ("read_static_qfp_vect_c", "write_static_qfp_vect_c"),
+        "pc": ("read_static_qfp_pc", "write_static_qfp_pc"),
+    },
+    "dynamic": {
+        "dyn_hwcn": ("read_dynamic_hwcn", "write_dynamic_hwcn"),
+        "dyn_vect_c": ("read_dynamic_vect_c", "write_dynamic_vect_c"),
+    },
+    "float": {
+        "float_hwcn": ("read_float_hwcn", "write_float_hwcn"),
+        "float_nchw": ("read_float_nchw", "write_float_nchw"),
+    },
+}
+_ALL_FORMATS = [f for fam in CONVERT_FORMATS.values() for f in fam]
+
+
+def cmd_convert(args) -> int:
+    """A model file into another format of its family, with the JAX
+    command's bytes and text; across families, exit 2."""
+    fam_in = next(f for f, d in CONVERT_FORMATS.items() if args.informat in d)
+    fam_out = next(f for f, d in CONVERT_FORMATS.items() if args.outformat in d)
+    if fam_in != fam_out:
+        print(
+            f"error: cannot convert {args.informat} ({fam_in} family) to "
+            f"{args.outformat} ({fam_out} family); pick formats from one family"
+        )
+        return 2
+    reader = getattr(model_files, CONVERT_FORMATS[fam_in][args.informat][0])
+    writer = getattr(model_files, CONVERT_FORMATS[fam_out][args.outformat][1])
+    params = reader(args.infile)
+    if fam_in == "float":  # float readers return (weights, biases)
+        writer(args.outfile, *params)
+    else:
+        writer(args.outfile, params)
+    print(f"converted {args.infile} ({args.informat}) -> {args.outfile} ({args.outformat})")
     return 0
 
 
@@ -289,6 +351,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", required=True)
     p.add_argument("--qp", type=int, required=True)
     p.add_argument("--recon", default=None)
+    p.add_argument("--config", default=None, help="JSON Config file (its engine settings "
+                   "replace --impl, --mesh and --out-dir)")
+    p.add_argument("--mesh", default="",
+                   help="DPxSP[xSW], e.g. 2x4 or 1x2x4 (sw = frame-column spatial axis, "
+                        "2-D halo sharding)")
     _add_engine_flags(p)
     p.set_defaults(fn=cmd_run)
 
@@ -299,6 +366,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--manifest", default=None, help="JSON manifest (default: JCT-VC set)")
     _add_engine_flags(p)
     p.set_defaults(fn=cmd_sweep)
+
+    p = sub.add_parser("convert", help="model file format conversion")
+    p.add_argument("--infile", required=True)
+    p.add_argument("--informat", required=True, choices=_ALL_FORMATS)
+    p.add_argument("--outfile", required=True)
+    p.add_argument("--outformat", required=True, choices=_ALL_FORMATS)
+    p.set_defaults(fn=cmd_convert)
 
     p = sub.add_parser("validate", help="cross-impl validation report (viewmem analog)")
     p.add_argument("--model", required=True)

@@ -110,7 +110,20 @@ def read_static_qfp_hwcn(path: PathOrIO) -> EngineParams:
             fp.close()
 
 
+def _check_scalar_rows(p: EngineParams) -> None:
+    """The hwcn and vect_c formats hold one (blu, mul, shift) per layer:
+    raise ValueError for a per-channel table before a byte is written (the
+    JAX writers fail on struct.pack with a TypeError, leaving a partial
+    file)."""
+    for i, row in enumerate(zip(p.blu_q, p.mul, p.shift)):
+        if any(np.ndim(v) for v in row):
+            raise ValueError(
+                f"layer {i} has per-channel (blu, mul, shift) rows: the hwcn and vect_c "
+                "formats hold one per layer; write the table as pc")
+
+
 def write_static_qfp_hwcn(path: PathOrIO, p: EngineParams) -> None:
+    _check_scalar_rows(p)
     fp, close = _open(path, "wb")
     try:
         for i in range(6):
@@ -148,6 +161,7 @@ def read_static_qfp_vect_c(path: PathOrIO) -> EngineParams:
 
 
 def write_static_qfp_vect_c(path: PathOrIO, p: EngineParams) -> None:
+    _check_scalar_rows(p)
     fp, close = _open(path, "wb")
     try:
         for i in range(6):

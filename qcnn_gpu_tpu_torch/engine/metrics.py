@@ -27,6 +27,7 @@ class RunRecord:
     psnr_after: float
     time_us: int
     impl: str = ""
+    mesh: str = ""  # "" or the mesh that served, "DPxSP[xSW]"
     device: str = ""
     # the stream's wire: {"served": "raw" | "duplex", "h2d_bytes", "d2h_bytes"},
     # the duplex steps, and under transport="auto" the probe that chose

@@ -27,6 +27,15 @@ each way), "duplex" (engine/packed.py: block-sparse temporal deltas up,
 predicted residual-delta blocks down, for static-camera content), or
 "auto", which measures the link and the device rate and picks.
 
+With a `mesh` (parallel/mesh.py), every program is the sharded one
+(`parallel/spatial.make_sharded_forward`): generation 3 under per-block
+frame bounds ("kernel", "kernel3", and "auto" on a table inside the
+saturation window) or the reference net; kernel1, kernel2 and "auto" on a
+table outside the window raise (generations 1 and 2 take no frame
+bounds). The engine's device is the mesh's first device, batch_frames a
+multiple of the mesh's dp, and a ragged last batch is edge-replicated up
+to batch_frames and cropped. `RunRecord.mesh` names the mesh.
+
 Two departures from the JAX engine, on purpose. The device is explicit
 and nothing changes it: a CUDA device without CUDA raises, a failed
 kernel build or launch raises, and a failure of the duplex path raises
@@ -44,6 +53,7 @@ frame loop including host->device and device->host copies
 from __future__ import annotations
 
 import functools
+import itertools
 import os
 import time
 from typing import Callable, Dict, Optional, Tuple
@@ -65,6 +75,8 @@ from qcnn_gpu_tpu_torch.models.qvrcnn import MergedParams, make_forward
 from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, fused_forward, window_refusal
 from qcnn_gpu_tpu_torch.ops.literal import LiteralWeights, literal_forward, literal_refusal
 from qcnn_gpu_tpu_torch.ops.pair import pair_forward
+from qcnn_gpu_tpu_torch.parallel.mesh import Mesh
+from qcnn_gpu_tpu_torch.parallel.spatial import make_sharded_forward, pad_batch, sharded_impl
 
 IMPLS = ("auto", "kernel", "kernel1", "kernel2", "kernel3", "reference")
 TRANSPORTS = ("raw", "duplex", "auto")
@@ -108,19 +120,43 @@ def _auto_generation(p: EngineParams) -> str:
     )
 
 
+def _cropped(sink: Callable, n: int) -> Callable:
+    """A sink that drops the rows past the first n it is fed (a padded tail)."""
+    seen = [0]
+
+    def crop(a):
+        k = min(a.shape[0], n - seen[0])
+        seen[0] += a.shape[0]
+        sink(a[:k])
+
+    return crop
+
+
 class Engine:
     def __init__(
         self,
-        device="cuda",
+        device=None,
         impl: str = "auto",
         out_dir: str = ".",
         batch_frames: int = 4,
+        mesh: Optional[Mesh] = None,
     ):
+        """device: a torch device (default "cuda"); with a mesh, its first
+        device, and a `device` that names another raises ValueError."""
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         if batch_frames < 1:
             raise ValueError(f"batch_frames must be >= 1, got {batch_frames}")
-        self.device = torch.device(device)
+        if mesh is not None:
+            d = torch.device(mesh.first if device is None else device)
+            if d.type != mesh.first.type or d.index not in (None, mesh.first.index):
+                raise ValueError(f"device {d} is not the first device of mesh {mesh!r}")
+            if batch_frames % mesh.shape["dp"]:
+                raise ValueError(f"batch_frames {batch_frames} is no multiple of the mesh's "
+                                 f"dp {mesh.shape['dp']}")
+            device = mesh.first
+        self.device = torch.device("cuda" if device is None else device)
+        self.mesh = mesh
         self.impl = impl
         self.batch_frames = batch_frames
         self.metrics = MetricsLog(out_dir)
@@ -152,9 +188,12 @@ class Engine:
         """The program that serves QP `qp`: "reference", or the kernel
         generation, "kernel1", "kernel2" or "kernel3". Under "auto" the
         model's table decides; a table that neither generation 3 nor
-        generation 1 computes raises ValueError."""
+        generation 1 computes raises ValueError. Under a mesh, "kernel3"
+        or "reference" (`parallel/spatial.sharded_impl`), or ValueError."""
         if qp not in self._names:
-            if self.impl == "auto":
+            if self.mesh is not None:
+                self._names[qp] = sharded_impl(self._params(qp), self.impl)
+            elif self.impl == "auto":
                 self._names[qp] = _auto_generation(self._params(qp))
             else:
                 self._names[qp] = "kernel3" if self.impl == "kernel" else self.impl
@@ -162,10 +201,12 @@ class Engine:
 
     def _program(self, qp: int) -> Callable:
         name = self.program_name(qp)
-        key = (qp, str(self.device), name)
+        key = (qp, str(self.device), name) + (() if self.mesh is None else (self.mesh.label(),))
         if key not in self._programs:
             p = self._params(qp)
-            if name == "reference":
+            if self.mesh is not None:
+                run = make_sharded_forward(p, self.mesh, impl=name)
+            elif name == "reference":
                 run = make_forward(p, device=self.device)
             else:
                 forward, kw, carrier = _GENERATIONS[name]
@@ -187,8 +228,11 @@ class Engine:
     # ---- restoration ----
     def restore(self, frames: np.ndarray, qp: int) -> np.ndarray:
         """uint8 [N, H, W] -> restored uint8 [N, H, W] (blocking)."""
+        n = frames.shape[0]
+        if self.mesh is not None:  # N up to a multiple of dp
+            frames = pad_batch(frames, -(-n // self.mesh.shape["dp"]) * self.mesh.shape["dp"])
         x = torch.from_numpy(np.ascontiguousarray(frames, np.uint8)).to(self.device)
-        return self._program(qp)(x).cpu().numpy()
+        return self._program(qp)(x)[:n].cpu().numpy()
 
     def restore_stream(
         self, frames: np.ndarray, qp: int, depth: int = 3, transport: str = "raw"
@@ -224,10 +268,15 @@ class Engine:
 
     def _restore_stream_raw(self, frames, qp: int, depth: int, out: np.ndarray) -> None:
         bs = self.batch_frames
+        n = frames.shape[0]
+        cut = n - n % bs if self.mesh is not None else n
+        batches = (frames[i:i + bs] for i in range(0, cut, bs))
+        sink = writer(out)
+        if cut < n:  # under a mesh, the ragged tail goes padded to bs
+            batches = itertools.chain(batches, [pad_batch(frames[cut:], bs)])
+            sink = _cropped(sink, n)
         pipeline_restore(
-            self._program(qp),
-            (frames[i:i + bs] for i in range(0, frames.shape[0], bs)),
-            depth, device=self.device, on_output=writer(out),
+            self._program(qp), batches, depth, device=self.device, on_output=sink,
             staging=self._stage(frames.shape[-2:], depth),
         )
 
@@ -244,11 +293,11 @@ class Engine:
         the best of 3 samples in place of one). Returns the decision, kept
         with every sample in `transport_decisions`; a probe that fails
         raises."""
-        bs = min(self.batch_frames, frames.shape[0])
+        bs = self.batch_frames if self.mesh is not None else min(self.batch_frames, frames.shape[0])
         key = (qp, tuple(frames.shape[-2:]), bs)
         if key in self.transport_decisions:
             return self.transport_decisions[key]
-        x = np.ascontiguousarray(frames[:bs])
+        x = np.ascontiguousarray(pad_batch(frames[:bs], bs))
         st = self._stage(key[1], 3)
         link_s = []
         for i in range(PROBE_SAMPLES + 1):  # the first warms the path
@@ -388,6 +437,7 @@ class Engine:
             psnr_after=yuv.psnr(recon, ori),
             time_us=time_us,
             impl=self.program_name(qp) + ("+duplex" if served == "duplex" else ""),
+            mesh="" if self.mesh is None else self.mesh.label(),
             device=str(self.device),
             transport=dict(self.last_stream),
         )

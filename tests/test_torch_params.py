@@ -157,6 +157,7 @@ def test_port_imports_no_jax():
         "models.qvrcnn_dynamic", "engine.calibrate", "engine.validate", "data.golden", "testing",
         "quant.params", "quant.solver", "models.float_model", "data.datasets",
         "train.checkpoint", "train.trainer", "train.finetune",
+        "parallel", "parallel.mesh", "parallel.spatial", "parallel.distributed", "config",
     )} <= names
 
 
