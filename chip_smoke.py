@@ -100,7 +100,29 @@ nvcc each, all at once) and then:
        the tile overhead each mesh implies, then u 4x1 4x1 u (four
        launches of a frame each, no tile overhead: the launches' cost). Each of
        phase 15's paths prints its own fused launches; the kernels line's
-       fused launches stay phase 4's run.
+       fused launches stay phase 4's run;
+  16   the wide CNN family and tensor parallelism on cuda:0, at full width
+       (256 channels, 10 body convs, 832x480), through library GEMMs (the
+       JAX package runs XLA convolutions there, no Pallas kernel): (a)
+       `make_wide_forward` (im2col + `torch._int_mm`, int32 epilogues) on
+       2 seeded frames and the c32 b3 twin, bit-equal to the plain version
+       on the card; (b) `tools/bench_wide` at its defaults (ms/frame and
+       int8 TOP/s against the 2.382 ms/frame bound) and one frame's time
+       by part (im2col, GEMM, epilogue); (c) `make_wide_forward_fp8`
+       (`torch._scaled_mm`) against its plain version (max |diff| <= 1)
+       and the float model (JAX's bounds: PSNR > 40 dB, max |diff| <= 8),
+       its weight bytes and ms/frame; (d) `make_tp_wide_forward` at tp
+       2, 4, 8 bit-equal to (a), and `make_tp_int8_forward` (QP37) at tp
+       1, 2, 4, 8 on phase 4's
+       anchors bit-equal to phase 4's generation-3 recon, each timed in
+       turns against tp 1 (QVRCNN's also against generation 3); a JSON
+       line {"library_routes": [...]} sums the routes up;
+  17   (dp, sp)-sharded training on virtual meshes over cuda:0, on phase
+       14's data (64 patches of 64x64): `make_grad_fn` at 2x1, 1x2, 2x2
+       and 1x4 against 1x1 (loss rel 1e-5, every gradient within 1e-5 of
+       its max |g|), ms/step per mesh in turns, 20 Adam steps of
+       `Trainer(mesh=2x2)` (the loss falls), `quant_finetune` on a 1x2
+       mesh (the weights on the grid).
 
 The committed 1080p and class-A golden PSNRs need matplotlib's sample
 data, which the smoke does not assume: `tests/test_torch_golden.py`
@@ -108,7 +130,9 @@ checks them (slow-marked, on the CPU).
 
 Every path (phases 4, 8, 9, 10, each of 11's, 12's, 14's and 15's) runs with the
 launch counts set to 0 just before it and read just after; a kernel of
-the path that was not launched fails the run. No phase catches an error: any
+the path that was not launched fails the run. Phase 16's paths count
+their library GEMMs the same way (`conv_int8.launches`,
+`conv_fp8.launches`); they launch none of the four kernels. No phase catches an error: any
 failure exits non-zero. Without a GPU, or without the rest of the
 repository, it exits non-zero and prints no result.
 
@@ -750,6 +774,12 @@ def main() -> int:
                "recon_static": recon_sr, "outside": p_out})
     tmp_dir.cleanup()
 
+    # ---- phase 16: the wide family and tensor parallelism (library GEMMs)
+    wide_path(card, anchor, recon, p37)
+
+    # ---- phase 17: (dp, sp)-sharded training (virtual meshes over cuda:0)
+    sharded_training(card)
+
     # least time for the same work: operations over the int8 peak, bytes
     # (each input read once, each output written once) over HBM's rate
     net_ops = 2 * MACS_PER_PIXEL * px
@@ -1249,6 +1279,265 @@ def training_path(cli, tmp: str, card: str, zero_counts, counts, anchor_1080p) -
     print(f"demo byte target: quantize_model(ckpt-1500, quant_table.data) as vect_c == "
           f"assets/demo/model_q.data ({len(buf.getvalue())} B)")
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+
+
+def in_turns(fns: dict, order, reps: int) -> dict:
+    """CUDA-event ms per call of each fns[name], timed in the given order
+    (names repeat: turns) after one warm-up call each, averaged over a
+    name's turns."""
+    from qcnn_gpu_tpu_torch.tools import events_ms
+
+    for fn in fns.values():
+        fn()
+    got = {}
+    for name in order:
+        got.setdefault(name, []).append(events_ms(fns[name], reps))
+    return {name: sum(v) / len(v) for name, v in got.items()}
+
+
+def wide_path(card: str, anchor_1080p, recon_1080p, p37) -> None:
+    """Phase 16: the wide CNN family and tensor parallelism on cuda:0, at
+    full width (c256 b10, 832x480). (a) make_wide_forward (im2col +
+    `_int_mm`) on 2 seeded frames and the small twin, bit-equal to the
+    plain version on the card; (b) tools/bench_wide at its defaults, and
+    one frame's time by part (im2col, GEMM, epilogue); (c) the FP8 forward
+    (`_scaled_mm`) against its plain version (max |diff| <= 1, as
+    tests/test_torch_wide_cuda.py holds it) and the float model (JAX's
+    bounds: PSNR > 40 dB, max |diff| <= 8); (d) the TP forwards on virtual
+    meshes: the wide net at tp 2, 4, 8 bit-equal to (a), QVRCNN (the QP37
+    model) at tp 2, 4, 8 on phase 4's anchors bit-equal to phase 4's
+    generation-3 recon, each timed in turns against tp 1 (and QVRCNN
+    against generation 3). Each path's GEMM count is zeroed before it and
+    read after; one JSON line {"library_routes": [...]} sums them up."""
+    import numpy as np
+    import torch
+
+    from qcnn_gpu_tpu_torch.data.yuv import psnr
+    from qcnn_gpu_tpu_torch.models import wide as WD
+    from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, fused_forward
+    from qcnn_gpu_tpu_torch.ops.int8_conv import conv_fp8, conv_int8
+    from qcnn_gpu_tpu_torch.parallel.mesh import make_mesh
+    from qcnn_gpu_tpu_torch.parallel.tensor import make_tp_int8_forward, make_tp_wide_forward
+    from qcnn_gpu_tpu_torch.tools import PEAK_INT8_OPS, bench_wide, events_ms
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    c, blocks, h, w = 256, 10, 480, 832
+    macs = h * w * bench_wide.macs_per_pixel(c, blocks)
+    bound = 2 * macs / PEAK_INT8_OPS * 1e3  # ms per frame, int8 (and fp8) dense peak
+
+    def max_err(a, b):
+        return int((a.to(torch.int16) - b.to(torch.int16)).abs().max())
+
+    # (a) the INT8 net on 2 frames, and the small twin, == the plain version
+    p = WD.synth_wide_params(c, blocks, seed=7)
+    x2 = torch.from_numpy(frames(2, h, w, seed=16)).to(dev)
+    run = WD.make_wide_forward(p, device=dev)
+    conv_int8.launches = 0
+    got = run(x2)
+    torch.cuda.synchronize()
+    n_int = conv_int8.launches
+    t0 = time.perf_counter()
+    want = WD.forward_wide(x2, p)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    p_small = WD.synth_wide_params(32, 3, seed=5)
+    xs = torch.from_numpy(frames(1, 48, 64, seed=6)).to(dev)
+    err_small = max_err(WD.make_wide_forward(p_small, device=dev)(xs), WD.forward_wide(xs, p_small))
+    err = max_err(got, want)
+    if err or err_small or n_int <= 0 or got.shape != x2.shape:
+        fail(f"wide INT8: max_abs_err {err} (c{c} b{blocks} 2x{h}x{w}), {err_small} (c32 b3), "
+             f"{n_int} _int_mm launches")
+    print(f"wide c{c} b{blocks} INT8, 2x{h}x{w} on cuda (impl {run.impl}): _int_mm launches={n_int}; "
+          f"max_abs_err=0 against the plain version on the card (float64 convs, {plain_s:.2f} s); "
+          f"small twin c32 b3 1x48x64 max_abs_err=0; {macs / 1e12:.6f} TMAC a frame {card}")
+
+    # (b) tools/bench_wide at its defaults (2 timed calls of its 150 frames,
+    # not 8: the smoke's time), and one frame's split
+    conv_int8.launches = 0
+    rec = bench_wide.bench(reps=2)
+    n_bench = conv_int8.launches
+    if not rec["small_twin_exact_vs_oracle"] or n_bench <= 0:
+        fail(f"tools/bench_wide: {rec}, {n_bench} _int_mm launches")
+    print(json.dumps(rec))
+    split = bench_wide.route_split(p, x2[:1])  # the parts of make_wide_forward's own call
+    total = sum(split.values())
+    print(f"tools/bench_wide c{c} b{blocks} {h}x{w} batch {rec['batch']} (2 calls after a warm-up): "
+          f"{rec['ms_per_frame']:.4f} "
+          f"ms/frame, {rec['int8_tops']:.2f} int8 TOP/s; bound {bound:.4f} ms/frame "
+          f"({rec['ms_per_frame'] / bound:.3f}x), {n_bench} _int_mm launches; one frame by part: "
+          + ", ".join(f"{k} {v:.4f} ms ({100 * v / total:.1f}%)" for k, v in split.items())
+          + f", {total:.4f} ms in all {card}")
+
+    # (c) the FP8 net: synth_wide_params' float weights
+    ws, bs = WD.synth_float_wide(c, blocks, seed=7)
+    run8 = WD.make_wide_forward_fp8(ws, bs, device=dev)
+    plain8 = WD.make_wide_forward_fp8(ws, bs, device=dev, route="plain")
+    conv_fp8.launches = 0
+    r8 = run8(x2)
+    torch.cuda.synchronize()
+    n8 = conv_fp8.launches
+    rp = plain8(x2)
+    xn = (x2[..., None].to(torch.float32) - 128.0) / 255.0
+    with torch.no_grad():
+        res_f = WD.float_forward([torch.from_numpy(v).to(dev) for v in ws],
+                                 [torch.from_numpy(v).to(dev) for v in bs], xn)
+    rec_f = torch.clamp(x2.to(torch.float32) + torch.round(res_f[..., 0] * 255.0), 0, 255).to(torch.uint8)
+    r8n, rpn, rfn = (t.cpu().numpy() for t in (r8, rp, rec_f))
+    psnr_plain, psnr_float = psnr(r8n, rpn), psnr(r8n, rfn)
+    err_plain, err_float = max_err(r8, rp), max_err(r8, rec_f)
+    n_params = sum(v.size for v in ws)
+    if err_plain > 1 or not (psnr_float > 40.0 and err_float <= 8) or n8 <= 0 \
+            or run8.weight_bytes != n_params:
+        fail(f"wide FP8: max |diff| {err_plain} against its plain version (bound 1), PSNR "
+             f"{psnr_float} dB / max |diff| {err_float} against the float model, "
+             f"{n8} _scaled_mm launches, weight_bytes {run8.weight_bytes}")
+    t8 = in_turns({"int8": lambda: run(x2), "fp8": lambda: run8(x2), "fp8-plain": lambda: plain8(x2)},
+                  ("int8", "fp8", "fp8-plain", "fp8-plain", "fp8", "int8"), 3)
+    print(f"wide c{c} b{blocks} FP8, 2x{h}x{w} on cuda: _scaled_mm launches={n8}; against its plain "
+          f"version PSNR {psnr_plain:.4f} dB, max |diff| {err_plain} (bound 1); against the float model PSNR "
+          f"{psnr_float:.4f} dB, max |diff| {err_float} (bounds > 40, <= 8); weight_bytes "
+          f"{run8.weight_bytes} (1 B/param); ms/frame in turns: FP8 {t8['fp8'] / 2:.4f}, its plain "
+          f"version {t8['fp8-plain'] / 2:.4f}, INT8 {t8['int8'] / 2:.4f} (batch 2) {card}")
+
+    # (d) tensor parallelism on virtual meshes over cuda:0
+    x1 = x2[:1]
+    tp_wide = {1: make_tp_wide_forward(p, make_mesh(1, 1, devices=[dev]))}
+    for tp in (2, 4, 8):
+        tp_wide[tp] = make_tp_wide_forward(p, make_mesh(1, tp, devices=[dev] * tp))
+        conv_int8.launches = 0
+        out = tp_wide[tp](x1)
+        torch.cuda.synchronize()
+        n_tp = conv_int8.launches
+        if max_err(out, got[:1]) or n_tp <= 0:
+            fail(f"TP wide tp={tp}: max_abs_err {max_err(out, got[:1])}, {n_tp} launches")
+        print(f"make_tp_wide_forward tp={tp} ({tp_wide[tp].impl}), 1x{h}x{w}: max_abs_err=0 against "
+              f"(a); _int_mm launches={n_tp}")
+    tw = in_turns({tp: (lambda r=r: r(x1)) for tp, r in tp_wide.items()},
+                  (1, 2, 4, 8, 8, 4, 2, 1), 2)
+    print(f"TP wide ms/frame in turns (1x{h}x{w}): "
+          + ", ".join(f"tp {tp} {ms:.4f} ({ms / tw[1]:.3f}x)" for tp, ms in tw.items()) + f" {card}")
+    xa = torch.from_numpy(anchor_1080p[:4]).to(dev)
+    want_q = torch.from_numpy(recon_1080p[:4]).to(dev)
+    fw = FusedWeights.from_engine(p37, dev)
+    tp_q = {}
+    for tp in (1, 2, 4, 8):
+        tp_q[tp] = make_tp_int8_forward(p37, make_mesh(1, tp, devices=[dev] * tp))
+        conv_int8.launches = 0
+        out = tp_q[tp](xa)
+        torch.cuda.synchronize()
+        n_tp = conv_int8.launches
+        if max_err(out, want_q) or n_tp <= 0:
+            fail(f"TP QVRCNN tp={tp}: max_abs_err {max_err(out, want_q)} against phase 4, {n_tp} launches")
+        print(f"make_tp_int8_forward tp={tp} ({tp_q[tp].impl}), QP37 4x1080x1920: max_abs_err=0 "
+              f"against phase 4's generation-3 recon; _int_mm launches={n_tp}")
+    tq = in_turns({"g3": lambda: fused_forward(xa, fw),
+                   **{tp: (lambda r=r: r(xa)) for tp, r in tp_q.items()}},
+                  ("g3", 1, 2, 4, 8, 8, 4, 2, 1, "g3"), 2)
+    print("TP QVRCNN ms/frame in turns (4x1080x1920): "
+          + ", ".join(f"{'generation 3' if k == 'g3' else f'tp {k}'} {ms / 4:.4f} "
+                      f"({ms / tq[1]:.3f}x tp 1)" for k, ms in tq.items()) + f" {card}")
+    print(json.dumps({"library_routes": [
+        {"name": "wide_int8", "route": "torch._int_mm", "source": "qcnn_gpu_tpu_torch/ops/int8_conv.py",
+         "counterpart": "qcnn_gpu_tpu/models/wide.py:246 (XLA int8 conv)",
+         "launches_per_call_2_frames": n_int, "ms_per_frame": rec["ms_per_frame"],
+         "bound_ms_per_frame": bound, "split_ms_one_frame": split},
+        {"name": "wide_fp8", "route": "torch._scaled_mm", "source": "qcnn_gpu_tpu_torch/ops/int8_conv.py",
+         "counterpart": "qcnn_gpu_tpu/models/wide.py:299 (XLA bf16 conv)",
+         "launches_per_call_2_frames": n8, "ms_per_frame": t8["fp8"] / 2, "bound_ms_per_frame": bound},
+        {"name": "tp_wide_int8", "route": "torch._int_mm", "source": "qcnn_gpu_tpu_torch/parallel/tensor.py",
+         "counterpart": "qcnn_gpu_tpu/parallel/tensor.py:144", "ms_per_frame": tw},
+        {"name": "tp_qvrcnn_int8", "route": "torch._int_mm", "source": "qcnn_gpu_tpu_torch/parallel/tensor.py",
+         "counterpart": "qcnn_gpu_tpu/parallel/tensor.py:73",
+         "ms_per_frame": {str(k): v / 4 for k, v in tq.items()}},
+    ]}))
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+
+
+def sharded_training(card: str) -> None:
+    """Phase 17: (dp, sp)-sharded training on virtual meshes over cuda:0,
+    on phase 14's demo data (64 patches of 64x64): make_grad_fn at 2x1,
+    1x2, 2x2 and 1x4 against 1x1 (loss rel 1e-5, every gradient within
+    1e-5 of its max |g|: the float model's tolerance in
+    tests/test_torch_float_model.py); ms/step per mesh in turns;
+    20 Adam steps of Trainer(mesh=2x2) (the loss falls); quant_finetune
+    on a 1x2 mesh (the weights on the grid)."""
+    import numpy as np
+    import torch
+
+    from qcnn_gpu_tpu_torch.data.datasets import PatchDataset
+    from qcnn_gpu_tpu_torch.models import float_model as FM
+    from qcnn_gpu_tpu_torch.parallel.mesh import make_mesh
+    from qcnn_gpu_tpu_torch.quant.solver import BLU_INIT, stepw_from_weights
+    from qcnn_gpu_tpu_torch.testing import dct_compress, make_clean_frames
+    from qcnn_gpu_tpu_torch.train.finetune import quant_finetune
+    from qcnn_gpu_tpu_torch.train.trainer import TrainConfig, Trainer, make_grad_fn, make_train_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    clean = make_clean_frames(12, 256, 256)
+    ds = PatchDataset([(clean, dct_compress(clean, q=28.0))], patch=64, seed=0)
+    batches = list(ds.batches(64, 30))
+    meshes = [(1, 1), (2, 1), (1, 2), (2, 2), (1, 4)]
+
+    def mesh(dp, sp):
+        return make_mesh(dp, sp, devices=[dev] * (dp * sp))
+
+    params = FM.params_from_jax(FM.init_params(0), dev)
+    x, y = batches[0]
+    ref_loss, ref = make_grad_fn(mesh(1, 1))(params, x, y)
+    for dp, sp in meshes[1:]:
+        loss, grads = make_grad_fn(mesh(dp, sp))(params, x, y)
+        rel = abs(float(loss) / float(ref_loss) - 1)
+        worst = max(float((grads[k] - ref[k]).abs().max() / ref[k].abs().max()) for k in ref)
+        if rel > 1e-5 or worst > 1e-5:
+            fail(f"make_grad_fn {dp}x{sp}: loss rel diff {rel:.3g}, worst gradient {worst:.3g} of max |g|")
+        print(f"make_grad_fn {dp}x{sp} on cuda, 64x64x64: loss rel diff to 1x1 {rel:.3g}, worst "
+              f"gradient diff {worst:.3g} of its max |g| (tolerance 1e-5)")
+
+    steps = {}
+    for dp, sp in meshes:
+        step, make_opt = make_train_step(mesh(dp, sp), lr=1e-4)
+        model = FM.FloatVRCNN(FM.init_params(0), device=dev)
+        opt = make_opt(model)
+        for xb, yb in batches[:2]:  # warm-up: cuDNN's choices, the allocator
+            step(model, opt, xb, yb)
+        steps[(dp, sp)] = (step, model, opt)
+
+    def timed(key):
+        step, model, opt = steps[key]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for xb, yb in batches[2:7]:
+            step(model, opt, xb, yb)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / 5
+
+    ms = {}
+    for key in meshes + meshes[::-1]:
+        ms.setdefault(key, []).append(timed(key))
+    ms = {k: sum(v) / len(v) for k, v in ms.items()}
+    print("train step ms in turns (64x64x64, host clock over 5 steps, H2D included): "
+          + ", ".join(f"{dp}x{sp} {v:.4f} ({v / ms[(1, 1)]:.3f}x)" for (dp, sp), v in ms.items())
+          + f" {card}")
+
+    tr = Trainer(TrainConfig(lr=1e-4, log_every=0), mesh=mesh(2, 2))
+    losses = [float(tr.step_fn(tr.model, tr.opt, xb, yb)) for xb, yb in batches[:20]]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if not last < first:
+        fail(f"Trainer(mesh=2x2): the loss did not fall: first 5 steps {first:.4f}, last 5 {last:.4f}")
+    trained = tr.params
+    stepw = stepw_from_weights(FM.params_to_lists(trained)[0])
+    out = quant_finetune(trained, stepw, batches[20:30], mesh=mesh(1, 2), blu_ub=BLU_INIT[37],
+                         log_every=0)
+    off = max(float(np.abs(out[f"w_{n}"] / s - np.round(out[f"w_{n}"] / s)).max())
+              for n, s in zip(("C1", "C2_1", "C2_2", "C3_1", "C3_2", "C4"), stepw))
+    if off > 1e-3:
+        fail(f"quant_finetune(mesh=1x2): weights {off} of a step off the grid")
+    print(f"Trainer(mesh=2x2) 20 Adam steps (lr 1e-4): mean loss of the first 5 {first:.4f}, of the "
+          f"last 5 {last:.4f}; quant_finetune(mesh=1x2) 10 steps: weights on the grid (max {off:.2g} "
+          f"of a step off) {card}")
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

@@ -98,3 +98,21 @@ def requant_fast(u_folded: torch.Tensor, blu_b, mul, shift) -> torch.Tensor:
     u = torch.minimum(u, torch.as_tensor(blu_b, dtype=torch.int64, device=u.device))
     out = torch.clamp((u * _i64(mul)) >> _i64(shift), max=THRESHOLD)
     return out.to(u_folded.dtype)
+
+
+def blu_requant_clamped_i32(u: torch.Tensor, blu_q, mul, shift) -> torch.Tensor:
+    """`blu_requant_i32` in int32 arithmetic, for an int32 accumulator u:
+    u is clamped to [0, blu_q] before the product, so the largest product
+    is (blu_q + bias) * mul, which `check_blu_requant_i32_safe` bounds
+    below 2^31 (no int32 wrap is relied on). A clamped negative u gives
+    (bias * mul) >> shift = 0, since bias * mul <= 2^(shift-1); u above
+    blu_q gives 127. Returns int8. The rows are Python ints or int32
+    tensors broadcasting against u (channels-last [C] vectors)."""
+    if isinstance(mul, torch.Tensor):
+        bias = torch.div(1 << (shift - 1), mul, rounding_mode="floor")
+        mid = torch.minimum(u.clamp_min(0), blu_q)
+    else:
+        bias = (1 << (int(shift) - 1)) // int(mul)
+        mid = u.clamp(0, int(blu_q))
+    mid.add_(bias).mul_(mul).bitwise_right_shift_(shift)
+    return mid.masked_fill_(u > blu_q, THRESHOLD).to(torch.int8)

@@ -1,7 +1,6 @@
 """Sharded restoration: device meshes (mesh.py), halo-exchange spatial
-sharding (spatial.py) and frame sharding across processes
-(distributed.py). Counterpart of `qcnn_gpu_tpu/parallel/` less
-`tensor.py`."""
+sharding (spatial.py), frame sharding across processes (distributed.py)
+and channel sharding (tensor.py). Counterpart of `qcnn_gpu_tpu/parallel/`."""
 
 from qcnn_gpu_tpu_torch.parallel.mesh import Mesh, make_mesh, mesh_shape_for  # noqa: F401
 from qcnn_gpu_tpu_torch.parallel.spatial import (  # noqa: F401

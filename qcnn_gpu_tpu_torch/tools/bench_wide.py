@@ -1,0 +1,124 @@
+"""The wide restoration CNN on one CUDA GPU: the port's counterpart of
+`scripts/bench_wide.py` (BASELINE config 5).
+
+    python -m qcnn_gpu_tpu_torch.tools.bench_wide [channels] [blocks] [h] [w]
+
+Defaults: 256 channels, 10 body convs, 480x832. A pixel costs
+9 * (C + blocks * C^2 + C) MACs: 5,902,848 at the defaults, 2.357 TMAC for
+one 832x480 frame, from 5,902,848 int8 weights (the JAX script's
+docstring says ~2.8 TMAC and ~5.3M weights; its own formula gives these).
+
+First the reduced-width twin (c32 b3, one 48x64 frame) through the card
+program (`models/wide.make_wide_forward`: im2col + `_int_mm`, int32
+epilogues) against the port's plain version (float64-exact convolutions,
+int64 epilogues) on the card; then the full-scale net on bench_wide's
+batch, max(1, 60e6 / (h * w)) frames (the forward runs them in chunks),
+timed with CUDA events over 8 calls after one warm-up call. Prints one
+JSON line with the JAX script's keys, unrounded ("backend" names the
+card); the card's name and power limit and the bound at the int8 dense
+peak go on a line before it.
+
+`route_split` times one frame's call of that forward by part (im2col,
+GEMM, epilogue) with the CUDA events that `ops/int8_conv.part_hook`
+records as each part ends, for the smoke run and the ROADMAP's fused
+implicit-GEMM item.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+import torch
+
+from qcnn_gpu_tpu_torch.models import wide as W
+from qcnn_gpu_tpu_torch.ops import int8_conv as C
+from qcnn_gpu_tpu_torch.testing import synth_frames
+from qcnn_gpu_tpu_torch.tools import PEAK_INT8_OPS, events_ms, smi
+
+REPS = 8
+
+
+def macs_per_pixel(channels: int, blocks: int) -> int:
+    return 9 * (channels + channels * channels * blocks + channels)
+
+
+def batch_for(h: int, w: int) -> int:
+    """bench_wide's batch rule."""
+    return max(1, int(60e6 / (h * w)))
+
+
+def route_split(p: W.WideParams, x_uint8: torch.Tensor, reps: int = 3):
+    """ms of one call of `make_wide_forward`'s card program on x_uint8
+    [1, H, W] on a CUDA device, by part: {"im2col": pad + the tap copy,
+    "gemm": `_int_mm`, "epilogue": bias + requant (the tail's: the residual
+    and its add)}, summed over the layers, the mean of `reps` calls after a
+    warm-up. The parts end at the events that `int8_conv.part_hook` records
+    in the forward itself, so they add up to the whole call."""
+    run = W.make_wide_forward(p, device=x_uint8.device)
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    run(x_uint8)  # warm-up
+    calls = []
+    C.part_hook = lambda part: calls[-1].append((part, event()))
+    try:
+        for _ in range(reps):
+            calls.append([("start", event())])
+            run(x_uint8)
+    finally:
+        C.part_hook = None
+    torch.cuda.synchronize()
+    out = {"im2col": 0.0, "gemm": 0.0, "epilogue": 0.0}
+    for marks in calls:
+        for (_, a), (part, b) in zip(marks, marks[1:]):
+            out[part] += a.elapsed_time(b) / reps
+    return out
+
+
+def bench(channels: int = 256, blocks: int = 10, h: int = 480, w: int = 832,
+          reps: int = REPS) -> dict:
+    """The small twin's exactness, then the full-scale timing over `reps`
+    calls: the JSON record (the JAX script's keys)."""
+    dev = torch.device("cuda")
+    p_small = W.synth_wide_params(channels=32, blocks=3, seed=5)
+    xs = torch.from_numpy(synth_frames(1, 48, 64, seed=6)).to(dev)
+    exact = bool(torch.equal(W.make_wide_forward(p_small, device=dev)(xs),
+                             W.forward_wide(xs, p_small)))
+    p = W.synth_wide_params(channels=channels, blocks=blocks, seed=7)
+    run = W.make_wide_forward(p, device=dev)
+    batch = batch_for(h, w)
+    x = torch.from_numpy(synth_frames(batch, h, w, seed=8)).to(dev)
+    run(x)  # warm-up: cuBLASLt's choices, the allocator
+    ms = events_ms(lambda: run(x), reps) / batch
+    macs = h * w * macs_per_pixel(channels, blocks)
+    return {
+        "model": f"wide c{channels} b{blocks}",
+        "geometry": f"{h}x{w}",
+        "batch": batch,
+        "ms_per_frame": ms,
+        "fps": 1000.0 / ms,
+        "tmac_per_frame": macs / 1e12,
+        "int8_tops": macs * 2 / (ms / 1000) / 1e12,
+        "small_twin_exact_vs_oracle": exact,
+        "backend": f"cuda: {torch.cuda.get_device_name(0)}",
+    }
+
+
+def main(channels=256, blocks=10, h=480, w=832) -> int:
+    channels, blocks, h, w = int(channels), int(blocks), int(h), int(w)
+    if not torch.cuda.is_available():
+        raise RuntimeError("this benchmark needs a CUDA GPU")
+    card = smi()
+    bound = 2 * h * w * macs_per_pixel(channels, blocks) / PEAK_INT8_OPS * 1e3
+    print(f"gpu: {card}; bound {bound:.4f} ms/frame at the int8 dense peak")
+    rec = bench(channels, blocks, h, w)
+    print(json.dumps(rec))
+    return 0 if rec["small_twin_exact_vs_oracle"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(*sys.argv[1:]))

@@ -14,7 +14,9 @@ Contract (per reference step):
 Here the shadow floats are the optimizer's parameters: each step builds
 wq from them without grad, and sets each shadow weight's gradient to
 dL/dwq (the straight-through estimate), which is what the JAX step does
-when it differentiates at wq and adds the update to wf. Grid arithmetic is
+when it differentiates at wq and adds the update to wf. The gradients come
+from `trainer.make_grad_fn` over a (dp, sp) mesh, as finetune.py:52 takes
+them (default: `trainer.default_mesh(device)`). Grid arithmetic is
 float32 with a float32 step tensor, as the JAX package's, and rounds half
 to even. A per-channel table's [out_ch] steps broadcast over the output
 channels.
@@ -29,7 +31,8 @@ import torch
 
 from qcnn_gpu_tpu_torch.models import float_model as FM
 from qcnn_gpu_tpu_torch.models.topology import QVRCNN_LAYERS
-from qcnn_gpu_tpu_torch.train.trainer import make_adam
+from qcnn_gpu_tpu_torch.parallel.mesh import Mesh
+from qcnn_gpu_tpu_torch.train.trainer import default_mesh, make_adam, make_grad_fn
 
 
 def _quantize_w(wf: torch.Tensor, stepw: torch.Tensor) -> torch.Tensor:
@@ -41,20 +44,26 @@ def quant_finetune(
     stepw: Sequence,
     batches,
     *,
-    device,
+    device=None,
+    mesh: Optional[Mesh] = None,
     blu_ub: Optional[Sequence[float]] = None,
     lr: float = 1e-4,
     log_every: int = 10,
     log_fn=print,
     wbits: int = 8,
 ) -> FM.Params:
-    """Run the shadow-weight fine-tune on `device` over `batches` of
-    (images, labels) raw-valued float32 [N,H,W,1]. Returns params (JAX
+    """Run the shadow-weight fine-tune on `mesh` (or on the default mesh of
+    `device`: give exactly one) over `batches` of (images, labels)
+    raw-valued float32 [N,H,W,1]. Returns params (JAX
     layout) whose weights sit exactly on the signed `wbits` grid
     (round(w/stepw) in [-2^(b-1), 2^(b-1)-1]; wbits=4 is the INT4 stretch
     variant — same shadow-weight contract, coarser grid)."""
+    if (mesh is None) == (device is None):
+        raise TypeError("quant_finetune: give exactly one of mesh and device")
+    mesh = mesh if mesh is not None else default_mesh(device)
+    grad_fn = make_grad_fn(mesh, blu_ub)
     qlo, qhi = float(-(1 << (wbits - 1))), float((1 << (wbits - 1)) - 1)
-    wf = FM.FloatVRCNN(params, device=device, blu_ub=blu_ub)
+    wf = FM.FloatVRCNN(params, device=mesh.first, blu_ub=blu_ub)
     dev = next(wf.parameters()).device
 
     def per_out_channel(v):  # [out_ch] or scalar, float32 -> [O, 1, 1, 1] on dev
@@ -74,17 +83,13 @@ def quant_finetune(
     opt = make_adam(wf, lr)
 
     for n, (images, labels) in enumerate(batches, 1):
-        x = torch.as_tensor(images).to(dev)
-        y = torch.as_tensor(labels).to(dev)
         wq = wf.tensors()
-        for name, (s, _, _) in grid.items():
-            wq[name] = _quantize_w(wq[name].detach(), s).requires_grad_()
-        opt.zero_grad(set_to_none=True)
-        with FM.fp32_convs():
-            loss = FM.l2_loss(wq, x, y, blu_ub)
-            loss.backward()
-        for name in grid:
-            getattr(wf, name).grad = wq[name].grad
+        with torch.no_grad():
+            for name, (s, _, _) in grid.items():
+                wq[name] = _quantize_w(wq[name], s)
+        loss, grads = grad_fn(wq, images, labels)
+        for name in FM.PARAM_NAMES:
+            getattr(wf, name).grad = grads[name]
         opt.step()
         with torch.no_grad():
             for name, (_, lo, hi) in grid.items():

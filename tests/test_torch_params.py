@@ -158,6 +158,7 @@ def test_port_imports_no_jax():
         "quant.params", "quant.solver", "models.float_model", "data.datasets",
         "train.checkpoint", "train.trainer", "train.finetune",
         "parallel", "parallel.mesh", "parallel.spatial", "parallel.distributed", "config",
+        "ops.int8_conv", "models.wide", "parallel.tensor", "tools.bench_wide",
     )} <= names
 
 

@@ -46,7 +46,7 @@ from qcnn_gpu_tpu_torch.models import float_model as FM
 from qcnn_gpu_tpu_torch.quant.params import QuantTable
 from qcnn_gpu_tpu_torch.train import checkpoint as CK
 from qcnn_gpu_tpu_torch.train.finetune import quant_finetune
-from qcnn_gpu_tpu_torch.train.trainer import TrainConfig, Trainer, train_step
+from qcnn_gpu_tpu_torch.train.trainer import TrainConfig, Trainer
 
 DEMO = T.asset("demo")
 LR = 1e-3
@@ -113,7 +113,7 @@ def test_adam_steps_equal_jax(blu):
     blu_ub = [0.3, 0.2, 0.2, 0.15, 0.15, 0.0] if blu else None
     batches = _batches(5)
     tr = Trainer(TrainConfig(lr=LR, log_every=0), device="cpu", blu_ub=blu_ub)
-    losses = [train_step(tr.model, tr.opt, x, y).item() for x, y in batches]
+    losses = [tr.step_fn(tr.model, tr.opt, x, y).item() for x, y in batches]
     step, opt_init = make_train_step(make_mesh(1, 1), blu_ub, lr=LR)
     params = JFM.init_params(0)
     state = opt_init(params)
@@ -216,7 +216,7 @@ def test_checkpoints_read_both_ways(origin, tmp_path):
     tr.load_checkpoint(d)
     assert tr.global_step == step0
     assert CK.adam_from_torch(tr.opt, tr.model).count == step0
-    losses = [train_step(tr.model, tr.opt, x, y).item() for x, y in more]
+    losses = [tr.step_fn(tr.model, tr.opt, x, y).item() for x, y in more]
     jparams, jlosses = _continue_jax(jparams, jstate, more)
     np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
     assert_trained_close(tr.params, jparams, 5)
