@@ -9,7 +9,8 @@ builds the kernels from the four sources in qcnn_gpu_tpu_torch/csrc (one
 nvcc each, all at once) and then:
 
   1-5  the kernels' `ptxas` reports (registers, spills; none allowed in
-       the three network kernels) and shared memory; the fused kernel
+       the three network kernels, every tile instance of generation 3
+       built) and shared memory; the fused kernel
        (generation 3: split branch GEMMs on `wgmma`, weights resident in
        shared memory, a persistent grid of 24x40 tiles) bit for bit
        against its plain version (phase 2's
@@ -36,8 +37,10 @@ nvcc each, all at once) and then:
        end, which also prints the `mma.sync` issue ceiling (a measurement
        with no TPU counterpart, so not in the kernels line);
   10   `tools/bench_kernels` (its literal launches on a line of their
-       own), then v3, v2 and v1 timed at 1080p batch 4 in turns (v3 v2 v1
-       v1 v2 v3), beside their plain versions;
+       own), then v3 at the table's tile for 1080p batch 4 (v3t, the
+       instance phase 4 launched, which the kernels line's row 1 times),
+       v3 at 24x40, v2 and v1 timed at 1080p batch 4 in turns (v3t v3 v2
+       v1 v1 v2 v3 v3t), beside their plain versions;
   11   the streaming engine (engine/stream.py, engine/packed.py):
        phase 4's pipelined raw stream again under
        `torch.cuda.set_sync_debug_mode("error")` (no host sync in the
@@ -122,13 +125,25 @@ nvcc each, all at once) and then:
        and 1x4 against 1x1 (loss rel 1e-5, every gradient within 1e-5 of
        its max |g|), ms/step per mesh in turns, 20 Adam steps of
        `Trainer(mesh=2x2)` (the loss falls), `quant_finetune` on a 1x2
-       mesh (the weights on the grid).
+       mesh (the weights on the grid);
+  18   the tuned table (ops/tuning.py, qcnn_gpu_tpu_torch/tuned_h100.json)
+       and generation 3's tile instances (ops/fused.TILES): (a) every
+       instance, and generation 2's one (24x40), bit for bit against its
+       plain version on phase 2's cases (frame bounds: generation 3 alone)
+       and on frames smaller than any tile, ragged in both axes, where the
+       card's plain version is first held equal to the CPU's; (b) at the six reference
+       geometries, batch 1 and 4, the table's program (`build_tuned`)
+       against generation 3 at 24x40: equal recon, ms/frame of each in
+       turns (base tuned tuned base, CUDA-graph replays: device time, not
+       the host's enqueue), the tile served; (c) `cli run
+       --config` (batch_frames 1) on 8 frames of 416x240: the table's
+       instance launched, no other tile.
 
 The committed 1080p and class-A golden PSNRs need matplotlib's sample
 data, which the smoke does not assume: `tests/test_torch_golden.py`
 checks them (slow-marked, on the CPU).
 
-Every path (phases 4, 8, 9, 10, each of 11's, 12's, 14's and 15's) runs with the
+Every path (phases 4, 8, 9, 10, each of 11's, 12's, 14's, 15's and 18's) runs with the
 launch counts set to 0 just before it and read just after; a kernel of
 the path that was not launched fails the run. Phase 16's paths count
 their library GEMMs the same way (`conv_int8.launches`,
@@ -246,14 +261,17 @@ def main() -> int:
     from qcnn_gpu_tpu_torch.engine.runner import Engine, read_model
     from qcnn_gpu_tpu_torch.models.qvrcnn import _normalized_table, make_forward
     from qcnn_gpu_tpu_torch.models.topology import MACS_PER_PIXEL
-    from qcnn_gpu_tpu_torch.ops import build
+    from qcnn_gpu_tpu_torch.ops import build, tuning
     from qcnn_gpu_tpu_torch.ops.fused import (
         KERNEL,
+        SPLIT_BYTES,
         TILE_H,
         TILE_W,
+        TILES,
         FusedWeights,
         fused_forward,
         fused_forward_reference,
+        layout,
     )
     from qcnn_gpu_tpu_torch.data.model_files import write_dynamic_hwcn, write_static_qfp_vect_c
     from qcnn_gpu_tpu_torch.models.engine_params import DynamicParams
@@ -277,6 +295,8 @@ def main() -> int:
     def zero_counts():
         for fn in wrappers.values():
             fn.launches = 0
+            if hasattr(fn, "tile_launches"):  # generation 3: launches by tile
+                fn.tile_launches = dict.fromkeys(fn.tile_launches, 0)
 
     def counts():
         return {name: fn.launches for name, fn in wrappers.items()}
@@ -301,13 +321,22 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print("    ptxas:", line.strip())
     for name in ("qvrcnn_fused", "qvrcnn_pair", "qvrcnn_literal"):
-        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", build.build_info[name]["log"])
+        log = build.build_info[name]["log"]
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
         if not spills or any(int(n) for n in spills):
             fail(f"ptxas reports spills (or no report) for {name}: {spills}")
+        entries = len(re.findall(r"Compiling entry function", log))
+        if entries != (len(TILES) if name == KERNEL else 1):
+            fail(f"{name}: ptxas compiled {entries} kernels, expected "
+                 f"{'one per tile of ' + str(TILES) if name == KERNEL else 'one'}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    smem = build.library(KERNEL).qvrcnn_smem_bytes()
-    print(f"{KERNEL}: 0 bytes spilled, {smem} bytes of dynamic shared memory per block, "
-          f"{TILE_H}x{TILE_W} tiles, grid = min(tiles, {sms} SMs) blocks of 512 threads")
+    smem = {t: build.library(KERNEL).qvrcnn_smem_bytes(*t) for t in TILES}
+    want = {t: SPLIT_BYTES + 160 * 16 + layout(*t).bytes for t in TILES}
+    if smem != want:
+        fail(f"{KERNEL}: dynamic shared memory by tile {smem}, ops/fused.layout says {want}")
+    print(f"{KERNEL}: 0 bytes spilled in its {len(TILES)} tile instances; dynamic shared memory "
+          f"per block: {', '.join(f'{th}x{tw} {b} B' for (th, tw), b in smem.items())}; "
+          f"grid = min(tiles, {sms} SMs) blocks of 512 threads")
     for name in ("qvrcnn_pair", "qvrcnn_literal"):
         print(f"{name}: 0 bytes spilled, {build.library(name).qvrcnn_smem_bytes()} bytes of "
               f"dynamic shared memory, {TILE_H}x{TILE_W} tiles")
@@ -407,6 +436,7 @@ def main() -> int:
 
     launched, recon, run = cli_run("auto")
     launches = {"qvrcnn_fused": launched["qvrcnn_fused"]}
+    main_tiles = {f"{th}x{tw}": n for (th, tw), n in fused_forward.tile_launches.items() if n}
     if launches["qvrcnn_fused"] <= 0:
         fail("the main path launched the fused kernel no time")
     want = np.concatenate([
@@ -532,8 +562,9 @@ def main() -> int:
     if launches["mma_probe"] <= 0:
         fail("tools/mma_probe launched the probe kernel no time")
 
-    # ---- phase 10: tools/bench_kernels, then v3, v2 and v1 timed
-    # at 1080p batch 4 (the main path's batch) beside their plain versions
+    # ---- phase 10: tools/bench_kernels, then v3 (at the table's tile for
+    # the main path's shape, and at 24x40), v2 and v1 timed at 1080p batch 4
+    # (the main path's batch) beside their plain versions
     zero_counts()
     bench_kernels.main([])
     n_bench = counts()["qvrcnn_literal"]
@@ -544,9 +575,14 @@ def main() -> int:
     xd = torch.from_numpy(frames(b, H, W, seed=b)).to(dev)
     lw37 = lws["golden-QP37"]
     px = b * H * W
-    # v3, v2 and v1 in turns: v3 v2 v1 v1 v2 v3
-    runs = {"v3": lambda: fused_forward(xd, fw37), "v2": lambda: pair_forward(xd, fw37),
-            "v1": lambda: literal_residual(xd, lw37)}
+    # the instance the main path runs at this shape (phase 4 launched it
+    # alone), then v3 at 24x40, v2 and v1, in turns: v3t v3 v2 v1 v1 v2 v3 v3t
+    tuned = tuning.build_tuned(models["golden-QP37"], dev, H, W, b)
+    main_tile = f"{tuned.tile[0]}x{tuned.tile[1]}"
+    if set(main_tiles) != {main_tile}:
+        fail(f"phase 4 launched the fused kernel at {main_tiles}, the table says {main_tile}")
+    runs = {"v3t": lambda: tuned(xd), "v3": lambda: fused_forward(xd, fw37),
+            "v2": lambda: pair_forward(xd, fw37), "v1": lambda: literal_residual(xd, lw37)}
     turns = {k: [] for k in runs}
     for k in runs:
         runs[k]()
@@ -554,12 +590,13 @@ def main() -> int:
         turns[k].append(events_ms(runs[k], 20))
     mean = {k: sum(v) / len(v) for k, v in turns.items()}
     for k, v in turns.items():
-        print(f"{k} at 1080p batch {b}, in turns: {mean[k] / b:.4f} ms/frame "
+        label = f"v3 at {main_tile} (the main path's)" if k == "v3t" else k
+        print(f"{label} at 1080p batch {b}, in turns: {mean[k] / b:.4f} ms/frame "
               f"({' / '.join(f'{t / b:.4f}' for t in v)}), {mean[k] / mean['v3']:.4f} of v3 {card}")
     pair_forward_reference(xd, fw37)
     literal_residual_reference(xd, lw37)
     measured = {
-        "qvrcnn_fused": (mean["v3"], times[b][1]),
+        "qvrcnn_fused": (mean["v3t"], times[b][1]),
         "qvrcnn_pair": (mean["v2"],
                         events_ms(lambda: pair_forward_reference(xd, fw37), 2)),
         "qvrcnn_literal": (mean["v1"], events_ms(lambda: literal_residual_reference(xd, lw37), 2)),
@@ -780,6 +817,9 @@ def main() -> int:
     # ---- phase 17: (dp, sp)-sharded training (virtual meshes over cuda:0)
     sharded_training(card)
 
+    # ---- phase 18: the tuned table and generation 3's tile instances
+    tiles_18 = tuned_path(cli, card, zero_counts, wrappers, models, fws, cases, max_errs)
+
     # least time for the same work: operations over the int8 peak, bytes
     # (each input read once, each output written once) over HBM's rate
     net_ops = 2 * MACS_PER_PIXEL * px
@@ -800,6 +840,11 @@ def main() -> int:
             "plain_ms": p_ms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
         })
+    # row 1's tiles: the instances launched on the main path (phase 4) and
+    # on phase 18 (c)'s cli run, and phase 10's ms per launch of the main
+    # path's instance (row 1's "ms") beside 24x40's
+    rows[0]["tiles"] = {"phase 4": main_tiles, "phase 18 (c)": tiles_18,
+                        "ms": {main_tile: mean["v3t"], "24x40": mean["v3"]}}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1538,6 +1583,137 @@ def sharded_training(card: str) -> None:
           f"last 5 {last:.4f}; quant_finetune(mesh=1x2) 10 steps: weights on the grid (max {off:.2g} "
           f"of a step off) {card}")
     print(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+
+
+def tuned_path(cli, card: str, zero_counts, wrappers, models, fws, cases, max_errs) -> dict:
+    """Phase 18: the tuned table (ops/tuning.py) and generation 3's tile
+    instances. (a) Every instance, and generation 2's one (24x40), bit for
+    bit against its plain version on phase 2's cases (frame bounds:
+    generation 3 alone) and on frames smaller than any tile, ragged in
+    both axes, where the card's plain version is first held equal to the
+    CPU's. (b) At the six reference geometries, batch 1 and 4: the
+    table's program against generation 3 at 24x40, equal recon and
+    ms/frame in turns. (c) `cli run --config` (batch_frames 1) on 8 frames
+    of 416x240: the table's instance launched and no other kernel or
+    tile. Returns (c)'s fused launches by tile."""
+    import numpy as np
+    import torch
+
+    from qcnn_gpu_tpu_torch.ops import tuning
+    from qcnn_gpu_tpu_torch.ops.fused import (
+        TILES,
+        FusedWeights,
+        fused_forward,
+        fused_forward_reference,
+    )
+    from qcnn_gpu_tpu_torch.ops.pair import pair_forward
+    from qcnn_gpu_tpu_torch.tools import events_ms, graph_timer
+    from qcnn_gpu_tpu_torch.tools.sweep_kernel import GEOMETRIES
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+
+    # (a) every instance against its plain version; on the frames smaller
+    # than a tile, the card's plain version (cuDNN float64 convolutions)
+    # against the CPU's first, a second witness for the kernels' reference
+    small = [(name, geo, "synth", ()) for name in models for geo in ((1, 13, 27), (2, 19, 31))]
+    for name, geo, _, _ in small:
+        x = torch.from_numpy(frames(*geo, seed=sum(geo)))
+        cpu = fused_forward_reference(x, FusedWeights.from_engine(models[name], "cpu"))
+        if not torch.equal(fused_forward_reference(x.to(dev), fws[name]).cpu(), cpu):
+            fail(f"the plain version on the card differs from the CPU's: {name} {geo}")
+    print(f"the plain version on the card == the CPU's on the {len(small)} frames smaller than "
+          "a tile")
+    worst = {("qvrcnn_fused", t): 0 for t in TILES}
+    worst["qvrcnn_pair", (24, 40)] = 0
+    for name, geo, kind, bounds in cases + small:
+        if kind == "synth":
+            x = frames(*geo, seed=sum(geo))
+        else:
+            x = np.full(geo, 0 if kind == "zeros" else 255, np.uint8)
+        xd = torch.from_numpy(x).to(dev)
+        want = fused_forward_reference(xd, fws[name], *bounds)
+        for kname, tile in worst:
+            if kname == "qvrcnn_pair":
+                if bounds:
+                    continue
+                got = pair_forward(xd, fws[name])
+            else:
+                got = fused_forward(xd, fws[name], *bounds, tile=tile)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
+            worst[kname, tile] = max(worst[kname, tile], err)
+            if err != 0:
+                fail(f"{kname} {tile[0]}x{tile[1]} differs from its plain version: "
+                     f"{name} {geo} {kind} {bounds}")
+    for (kname, (th, tw)), err in worst.items():
+        max_errs[kname] = max(max_errs[kname], err)
+        print(f"{kname} {th}x{tw} vs plain, phase 2's {len(cases)} cases (bounds: "
+              f"generation 3 only) and {len(small)} frames smaller than a tile: max_abs_err={err}")
+
+    # (b) the table's program against 24x40, in turns
+    fw = fws["golden-QP37"]
+    p37 = models["golden-QP37"]
+    for h, w in GEOMETRIES:
+        for b in (1, 4):
+            run = tuning.build_tuned(p37, dev, h, w, b)
+            x = torch.from_numpy(frames(b, h, w, seed=h + b)).to(dev)
+            got, want = run(x), fused_forward(x, fw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"the table's program at {w}x{h} batch {b} differs from 24x40")
+            reps = max(5, math.ceil(20.0 / max(events_ms(lambda: fused_forward(x, fw), 3), 1e-3)))
+            timers = {"24x40": graph_timer(lambda: fused_forward(x, fw), reps),
+                      "tuned": graph_timer(lambda: run(x), reps)}
+            ms = {k: 0.0 for k in timers}
+            for k in ("24x40", "tuned", "tuned", "24x40"):
+                ms[k] += timers[k]() / 2
+            del timers
+            th, tw = run.tile
+            print(f"tuned {w}x{h} batch {b}: generation 3 at {th}x{tw}, recon == 24x40; "
+                  f"{ms['tuned'] / b:.4f} ms/frame against 24x40's {ms['24x40'] / b:.4f} "
+                  f"({ms['tuned'] / ms['24x40']:.4f}x) in turns, CUDA graphs of {reps} launches "
+                  f"{card}")
+
+    # (c) cli run at 416x240, batch 1: the table's instance
+    h, w, n = 240, 416, 8
+    want = tuning.tuned_kwargs(h, w, 1)
+    served = f"{want.get('th', 24)}x{want.get('tw', 40)}"
+    with tempfile.TemporaryDirectory() as d:
+        ori = frames(n, h, w, seed=18)
+        anchor = np.clip(ori.astype(np.int16) + np.random.default_rng(18).integers(
+            -6, 7, size=ori.shape), 0, 255).astype(np.uint8)
+        files = {k: os.path.join(d, f"{k}.yuv") for k in ("ori", "anchor")}
+        write_yuv420(files["ori"], ori)
+        write_yuv420(files["anchor"], anchor)
+        with open(os.path.join(d, "engine.json"), "w") as fp:
+            json.dump({"engine": {"impl": "auto", "batch_frames": 1, "out_dir": d}}, fp)
+        zero_counts()
+        rc = cli.main(["run", "--ori", files["ori"], "--anchor", files["anchor"], "--height",
+                       str(h), "--width", str(w), "--frames", str(n), "--model",
+                       os.path.join(GOLDEN, "model_q37.data"), "--qp", "37", "--device", "cuda",
+                       "--config", os.path.join(d, "engine.json"),
+                       "--recon", os.path.join(d, "recon.yuv")])
+        launched = {f"{th}x{tw}": c for (th, tw), c in fused_forward.tile_launches.items() if c}
+        others = {k: fn.launches for k, fn in wrappers.items()
+                  if k != "qvrcnn_fused" and fn.launches}
+        if rc != 0:
+            fail(f"cli run --config (batch_frames 1) at {w}x{h} exited {rc}")
+        with open(os.path.join(d, "runs.jsonl")) as fp:
+            rec = json.loads(fp.readline())
+        recon = read_y420(os.path.join(d, "recon.yuv"), n, h, w)
+    if set(launched) != {served} or others:
+        fail(f"cli run at {w}x{h} batch 1: fused launches by tile {launched}, other kernels "
+             f"{others}; the table says {served}")
+    plain = fused_forward_reference(torch.from_numpy(anchor).to(dev), fw).cpu().numpy()
+    if not (recon == plain).all():
+        fail(f"cli run at {w}x{h} batch 1: recon differs from the plain version")
+    print(f"cli run --config (batch_frames 1), {n}x{w}x{h}: impl={rec['impl']}, the table's "
+          f"generation 3 at {served} launched {launched[served]} times, no other tile or "
+          f"kernel; recon == plain version; {rec['time_us'] / 1e3 / n:.4f} ms/frame incl. "
+          f"H2D/D2H {card}")
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    return launched
 
 
 if __name__ == "__main__":

@@ -33,10 +33,14 @@
 //   centre tap carries C3_1 and C3_2 (N = 48), its 8 others C3_1 (N = 16).
 //   56,320 MACs issued per computed position (1.03x the useful 54,512:
 //   K and N padding of S1, S3 and S4).
-// - Larger tiles: 24x40 outputs per tile (24 divides 1080, 40 divides
-//   1920). S2-S4 compute on their input region's row pitch, S1 on its
-//   own, so the halo, the wrapped columns and the last blocks' rows cost
-//   1.37x the output area, weighted by MACs (1.52x at 16x16).
+// - Larger tiles: 24x40 outputs per tile by default (24 divides 1080, 40
+//   divides 1920). S2-S4 compute on their input region's row pitch, S1 on
+//   its own, so the halo, the wrapped columns and the last blocks' rows
+//   cost 1.37x the output area, weighted by MACs (1.52x at 16x16). The
+//   kernel is a template on its tile and compiled at every tile of
+//   QVRCNN_TILES: a smaller tile costs more halo per pixel but can fill
+//   the 132 SMs' last round of a small frame (ops/tuning.py picks the
+//   tile per geometry from a measured table).
 // - `wgmma` on both operands from shared memory, one warpgroup per
 //   64-position block, all chunks of a block issued back to back. The
 //   A operand needs no im2col: activations are channel-block-major
@@ -51,7 +55,7 @@
 // - Weights resident in shared memory: the 56,320-byte image
 //   (ops/fused.split_operand) is copied once per block with cp.async; a
 //   persistent grid (one 512-thread block per SM, 218,976 bytes of shared
-//   memory) walks the (frame, row tile, column tile) list, and the next
+//   memory at 24x40) walks the (frame, row tile, column tile) list, and the next
 //   tile's window is loaded into registers while the current one computes.
 //
 // No stale or unwritten byte reaches an MMA: on every tile the window
@@ -67,28 +71,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hopper_wgmma.cuh"
+#include "qvrcnn_split.cuh"
+
+// The tiles this kernel is compiled at, X(TH, TW) each (ops/fused.TILES):
+// 24x40, the default, and those the measured table (ops/tuning.py) serves
+// somewhere: 24x32 at 416x240, 32x32 from 832x480 up.
+#define QVRCNN_TILES(X) X(24, 40) X(24, 32) X(32, 32)
 
 namespace {
 
 using namespace hopper;
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
-
-// ---- tile and regions (ops/fused.py: TILE_*, PITCH, ROWS, BLOCKS, PLANE)
-constexpr int TH = 24, TW = 40, HALO = 6;
-constexpr int P0 = TW + 12, P1 = TW + 8, P2 = TW + 4, P3 = TW + 2;  // row pitches
-constexpr int R0 = TH + 12, R1 = TH + 8, R2 = TH + 4, R3 = TH + 2;  // rows
-constexpr int RAW = R0 * P0;                                        // window bytes
-constexpr int MB1 = cdiv(R1 * P1, 64), MB2 = cdiv(R2 * P1, 64);     // 64-position blocks
-constexpr int MB3 = cdiv(R3 * P2, 64), MB4 = cdiv(R3 * P3, 64);  // S4: all of S3
-constexpr int EXP = MB1 * 64 + 3 * P1;                          // S1's A positions
-constexpr int PS1 = cmax(R1 * P1, MB2 * 64 + 4 * P1 + 4);      // plane positions
-constexpr int PS2 = cmax(R2 * P2, MB3 * 64 + 2 * P2 + 3);
-constexpr int PS3 = cmax(R3 * P3, MB4 * 64 + 1);
-constexpr int BUF_A_BYTES = cmax(4 * PS1, 3 * PS3) * 16;  // S1, then S3
-constexpr int BUF_B_BYTES = cmax(3 * PS2, EXP) * 16;      // expanded window, then S2
 
 // ---- weight image (ops/fused.SPLIT_CHUNKS / split_operand), in order:
 // S1 (1 chunk, N 64); S2 centre (9 taps x 2, N 48), outer (16 x 2, N 16);
@@ -98,27 +92,7 @@ constexpr int N_S2 = 18 + 32, N_S3 = 2 + 12, N_S4 = 2;
 constexpr int W_S1 = 0, W_S2C = W_S1 + 32 * 64, W_S2O = W_S2C + 18 * 32 * 48;
 constexpr int W_S3C = W_S2O + 32 * 32 * 16, W_S3O = W_S3C + 2 * 32 * 48;
 constexpr int W_S4 = W_S3O + 12 * 32 * 16, W_BYTES = W_S4 + N_S4 * 32 * 16;
-// S4's per-tap shares, int32 [9][SHARE_STRIDE], over S2's buffer (dead
-// after S3); the stride's +4 keeps a warp's stores in distinct banks
-constexpr int SHARE_STRIDE = MB4 * 64 + 4;
-static_assert(9 * SHARE_STRIDE * 4 <= BUF_B_BYTES, "S4 shares fit S2's buffer");
 
-static_assert(TH == 24, "ops/fused.TILE_H");
-static_assert(TW == 40, "ops/fused.TILE_W");
-static_assert(P0 == 52, "");
-static_assert(P1 == 48, "");
-static_assert(P2 == 44, "");
-static_assert(P3 == 42, "");
-static_assert(MB1 == 24, "");
-static_assert(MB2 == 21, "");
-static_assert(MB3 == 18, "");
-static_assert(MB4 == 18, "");
-static_assert(EXP == 1680, "");
-static_assert(PS1 == 1540, "");
-static_assert(PS2 == 1243, "");
-static_assert(PS3 == 1153, "");
-static_assert(BUF_A_BYTES == 98560, "");
-static_assert(BUF_B_BYTES == 59664, "");
 static_assert(W_BYTES == 56320, "ops/fused.SPLIT_BYTES");
 static_assert(N_S2 == 50, "");
 static_assert(N_S3 == 14, "");
@@ -131,17 +105,41 @@ static_assert(N_S4 == 2, "");
 // 16-byte load.
 constexpr int NCH = 64 + 48 + 48;
 constexpr int VEC_LEN = 4 * NCH;
-constexpr int SM_W = 0;
-constexpr int SM_VEC = SM_W + W_BYTES;
-constexpr int SM_RAW = SM_VEC + VEC_LEN * 4;
-constexpr int SM_A = SM_RAW + cdiv(RAW, 16) * 16;
-constexpr int SM_B = SM_A + BUF_A_BYTES;
-constexpr int SMEM_BYTES = SM_B + BUF_B_BYTES;  // 218,976
-static_assert(SMEM_BYTES <= 232448, "one block per SM");
-
 constexpr int NWG = 4, NTHREADS = 128 * NWG;  // 4 warpgroups, at most 128 registers
-constexpr int RAW_PER_THREAD = cdiv(RAW, NTHREADS);
-constexpr int MAX_DEVICES = 64;
+
+// ---- a tile instance (ops/fused.TILES). The regions of a TH x TW tile are
+// split::Geometry's (ops/fused.layout(th, tw)): row pitches P0..P3 and
+// rows R0..R3 of the window, S1, S2 and S3; the 64-position blocks MB1..MB4
+// of S1..S4; S1's expanded positions EXP; the plane sizes PS1..PS3 (the
+// region plus the tail the next stage's last, shifted block reads); S4's
+// share stride. Shared memory: the weight image, the vectors, the raw
+// window, then buffer A (S1, then S3) and buffer B (the expanded window,
+// then S2, then S4's int32 shares).
+template <int TH_, int TW_>
+struct Geo3 : split::Geometry<TH_, TW_> {
+  using G = split::Geometry<TH_, TW_>;
+  static constexpr int SM_W = 0, SM_VEC = SM_W + W_BYTES, SM_RAW = SM_VEC + VEC_LEN * 4;
+  static constexpr int SM_A = SM_RAW + G::OFF_A, SM_B = SM_RAW + G::OFF_B;
+  static constexpr int SMEM_BYTES = SM_RAW + G::BYTES;
+  static constexpr int RAW_PER_THREAD = cdiv(G::RAW, NTHREADS);
+  static_assert(SMEM_BYTES <= 232448, "one block per SM");
+};
+
+// Each compiled instance's regions as ops/fused.layout(th, tw) gives them
+// (tests/test_torch_fused_split.py holds these numbers against it): the
+// blocks of S1..S4, S1's expanded positions, the planes of S1..S3, the
+// tile's buffers (raw window, A, B) and the block's shared memory.
+template <int TH, int TW>
+constexpr bool regions(int mb1, int mb2, int mb3, int mb4, int exp, int ps1, int ps2, int ps3,
+                       int bytes, int smem) {
+  using G = Geo3<TH, TW>;
+  return G::MB1 == mb1 && G::MB2 == mb2 && G::MB3 == mb3 && G::MB4 == mb4 && G::EXP == exp &&
+         G::PS1 == ps1 && G::PS2 == ps2 && G::PS3 == ps3 && G::BYTES == bytes &&
+         G::SMEM_BYTES == smem;
+}
+static_assert(regions<24, 40>(24, 21, 18, 18, 1680, 1540, 1243, 1153, 160096, 218976), "");
+static_assert(regions<24, 32>(20, 18, 15, 14, 1400, 1316, 1035, 897, 135488, 194368), "");
+static_assert(regions<32, 32>(25, 23, 20, 19, 1720, 1636, 1355, 1217, 171680, 230560), "");
 
 struct Bounds {
   int r_lo, r_hi, c_lo, c_hi;  // valid frame rectangle (already clipped)
@@ -154,10 +152,11 @@ struct Tile {
   int f, ty0, tx0;
 };
 
+template <class G>
 __device__ __forceinline__ Tile tile_at(int t, int tiles_x, int per_frame) {
   const int f = t / per_frame, rem = t - f * per_frame;
   const int ty = rem / tiles_x;
-  return {f, ty * TH, (rem - ty * tiles_x) * TW};
+  return {f, ty * G::TH, (rem - ty * tiles_x) * G::TW};
 }
 
 // The folded BLU requant (ops/requant.requant_fast) with channel vector
@@ -238,31 +237,33 @@ __host__ __device__ constexpr int other3(int i) { return i < 4 ? i : i + 1; }
 // N = 16 wgmma into part of the N = 48 accumulator makes ptxas serialize
 // the wgmma pipeline, warning C7511).
 
+template <class G>
 __device__ __forceinline__ void stage1(uint32_t sbase, uint8_t* smem, Tile tl, Bounds bd) {
   const int wg = threadIdx.x >> 7;
-  const uint64_t db = desc(sbase + SM_W + W_S1, 128, 256);
-  zero_tails<4, R1 * P1, PS1>(smem + SM_A);
-  for (int mb = wg; mb < MB1; mb += NWG) {
+  const uint64_t db = desc(sbase + G::SM_W + W_S1, 128, 256);
+  zero_tails<4, G::R1 * G::P1, G::PS1>(smem + G::SM_A);
+  for (int mb = wg; mb < G::MB1; mb += NWG) {
     int acc[32];
     zero(acc);
     __syncwarp();
     wg_fence();
-    mma_n64<0>(acc, at(desc(sbase + SM_B + mb * 64 * 16, 0, 128), 0, 3 * P1), db);
+    mma_n64<0>(acc, at(desc(sbase + G::SM_B + mb * 64 * 16, 0, 128), 0, 3 * G::P1), db);
     wg_commit();
     wg_wait<0>();
     fence_regs(acc);
-    store_stage<64, P1, R1, P1, PS1>(acc, mb * 64, smem + SM_A,
-                                     reinterpret_cast<const int4*>(smem + SM_VEC),
-                                     tl.ty0 - 4, tl.tx0 - 4, bd);
+    store_stage<64, G::P1, G::R1, G::P1, G::PS1>(
+        acc, mb * 64, smem + G::SM_A, reinterpret_cast<const int4*>(smem + G::SM_VEC),
+        tl.ty0 - 4, tl.tx0 - 4, bd);
   }
 }
 
+template <class G>
 __device__ __forceinline__ void stage2(uint32_t sbase, uint8_t* smem, Tile tl, Bounds bd) {
   const int wg = threadIdx.x >> 7;
-  const uint64_t db = desc(sbase + SM_W, 128, 256);
-  zero_tails<3, R2 * P2, PS2>(smem + SM_B);
-  for (int mb = wg; mb < MB2; mb += NWG) {
-    const uint64_t da = desc(sbase + SM_A + mb * 64 * 16, 0, 128);
+  const uint64_t db = desc(sbase + G::SM_W, 128, 256);
+  zero_tails<3, G::R2 * G::P2, G::PS2>(smem + G::SM_B);
+  for (int mb = wg; mb < G::MB2; mb += NWG) {
+    const uint64_t da = desc(sbase + G::SM_A + mb * 64 * 16, 0, 128);
     int acc[24], acc2[8];  // channels 0-47; C2_2's outer taps (32-47)
     zero(acc);
     zero(acc2);
@@ -270,17 +271,17 @@ __device__ __forceinline__ void stage2(uint32_t sbase, uint8_t* smem, Tile tl, B
     wg_fence();
 #pragma unroll
     for (int i = 0; i < 9; ++i) {  // centre taps: C2_1 ++ C2_2, channels 0-47
-      const int s = (1 + i / 3) * P1 + 1 + i % 3;
+      const int s = (1 + i / 3) * G::P1 + 1 + i % 3;
 #pragma unroll
       for (int c = 0; c < 2; ++c)
-        mma_n48<0>(acc, at(da, 2 * c * PS1 + s, PS1), at(db, (W_S2C + (2 * i + c) * 1536) / 16, 0));
+        mma_n48<0>(acc, at(da, 2 * c * G::PS1 + s, G::PS1), at(db, (W_S2C + (2 * i + c) * 1536) / 16, 0));
     }
 #pragma unroll
     for (int i = 0; i < 16; ++i) {  // outer taps: C2_2, channels 32-47
-      const int s = outer5(i) / 5 * P1 + outer5(i) % 5;
+      const int s = outer5(i) / 5 * G::P1 + outer5(i) % 5;
 #pragma unroll
       for (int c = 0; c < 2; ++c)
-        mma_n16<0>(acc2, at(da, 2 * c * PS1 + s, PS1), at(db, (W_S2O + (2 * i + c) * 512) / 16, 0));
+        mma_n16<0>(acc2, at(da, 2 * c * G::PS1 + s, G::PS1), at(db, (W_S2O + (2 * i + c) * 512) / 16, 0));
     }
     wg_commit();
     wg_wait<0>();
@@ -288,37 +289,38 @@ __device__ __forceinline__ void stage2(uint32_t sbase, uint8_t* smem, Tile tl, B
     fence_regs(acc2);
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[16 + i] += acc2[i];
-    store_stage<48, P1, R2, P2, PS2>(acc, mb * 64, smem + SM_B,
-                                     reinterpret_cast<const int4*>(smem + SM_VEC) + 64,
-                                     tl.ty0 - 2, tl.tx0 - 2, bd);
+    store_stage<48, G::P1, G::R2, G::P2, G::PS2>(
+        acc, mb * 64, smem + G::SM_B, reinterpret_cast<const int4*>(smem + G::SM_VEC) + 64,
+        tl.ty0 - 2, tl.tx0 - 2, bd);
   }
 }
 
+template <class G>
 __device__ __forceinline__ void stage3(uint32_t sbase, uint8_t* smem, Tile tl, Bounds bd) {
   const int wg = threadIdx.x >> 7;
-  const uint64_t db = desc(sbase + SM_W, 128, 256);
-  zero_tails<3, R3 * P3, PS3>(smem + SM_A);
-  constexpr int SC = P2 + 1;  // centre tap
-  for (int mb = wg; mb < MB3; mb += NWG) {
-    const uint64_t da = desc(sbase + SM_B + mb * 64 * 16, 0, 128);
+  const uint64_t db = desc(sbase + G::SM_W, 128, 256);
+  zero_tails<3, G::R3 * G::P3, G::PS3>(smem + G::SM_A);
+  constexpr int SC = G::P2 + 1;  // centre tap
+  for (int mb = wg; mb < G::MB3; mb += NWG) {
+    const uint64_t da = desc(sbase + G::SM_B + mb * 64 * 16, 0, 128);
     int acc[24], acc1[8];  // channels 0-47; C3_1's other taps (0-15)
     zero(acc);
     zero(acc1);
     __syncwarp();
     wg_fence();
     // centre tap: C3_1 ++ C3_2, channels 0-47; planes 0+1, then 2 + zero half
-    mma_n48<0>(acc, at(da, SC, PS2), at(db, W_S3C / 16, 0));
-    mma_n48<0>(acc, at(da, 2 * PS2 + SC, 1), at(db, (W_S3C + 1536) / 16, 0));
+    mma_n48<0>(acc, at(da, SC, G::PS2), at(db, W_S3C / 16, 0));
+    mma_n48<0>(acc, at(da, 2 * G::PS2 + SC, 1), at(db, (W_S3C + 1536) / 16, 0));
 #pragma unroll
     for (int i = 0; i < 8; ++i) {  // other taps: C3_1, channels 0-15
-      const int s = other3(i) / 3 * P2 + other3(i) % 3;
-      mma_n16<0>(acc1, at(da, s, PS2), at(db, (W_S3O + i * 512) / 16, 0));
+      const int s = other3(i) / 3 * G::P2 + other3(i) % 3;
+      mma_n16<0>(acc1, at(da, s, G::PS2), at(db, (W_S3O + i * 512) / 16, 0));
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {  // plane 2 of taps 2j and 2j + 1
-      const int sa = other3(2 * j) / 3 * P2 + other3(2 * j) % 3;
-      const int sb = other3(2 * j + 1) / 3 * P2 + other3(2 * j + 1) % 3;
-      mma_n16<0>(acc1, at(da, 2 * PS2 + sa, sb - sa), at(db, (W_S3O + (8 + j) * 512) / 16, 0));
+      const int sa = other3(2 * j) / 3 * G::P2 + other3(2 * j) % 3;
+      const int sb = other3(2 * j + 1) / 3 * G::P2 + other3(2 * j + 1) % 3;
+      mma_n16<0>(acc1, at(da, 2 * G::PS2 + sa, sb - sa), at(db, (W_S3O + (8 + j) * 512) / 16, 0));
     }
     wg_commit();
     wg_wait<0>();
@@ -326,9 +328,9 @@ __device__ __forceinline__ void stage3(uint32_t sbase, uint8_t* smem, Tile tl, B
     fence_regs(acc1);
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[i] += acc1[i];
-    store_stage<48, P2, R3, P3, PS3>(acc, mb * 64, smem + SM_A,
-                                     reinterpret_cast<const int4*>(smem + SM_VEC) + 112,
-                                     tl.ty0 - 1, tl.tx0 - 1, bd);
+    store_stage<48, G::P2, G::R3, G::P3, G::PS3>(
+        acc, mb * 64, smem + G::SM_A, reinterpret_cast<const int4*>(smem + G::SM_VEC) + 112,
+        tl.ty0 - 1, tl.tx0 - 1, bd);
   }
 }
 
@@ -337,20 +339,21 @@ __device__ __forceinline__ void stage3(uint32_t sbase, uint8_t* smem, Tile tl, B
 // acc[p, t] is tap t's share of the output at p - (dy_t * P3 + dx_t). The
 // 9 shares go to shared memory and each output pixel sums its own; then
 // the final residual requant and the residual add.
+template <class G>
 __device__ __forceinline__ void stage4(uint32_t sbase, uint8_t* smem, const uint8_t* xf,
                                        uint8_t* yf, int H, int W, Tile tl, int b4, int mul4,
                                        int shift4) {
   const int wg = threadIdx.x >> 7, t = threadIdx.x & 3;
-  const uint64_t db = desc(sbase + SM_W, 128, 256);
-  int* share = reinterpret_cast<int*>(smem + SM_B);
-  for (int mb = wg; mb < MB4; mb += NWG) {
-    const uint64_t da = desc(sbase + SM_A + mb * 64 * 16, 0, 128);
+  const uint64_t db = desc(sbase + G::SM_W, 128, 256);
+  int* share = reinterpret_cast<int*>(smem + G::SM_B);
+  for (int mb = wg; mb < G::MB4; mb += NWG) {
+    const uint64_t da = desc(sbase + G::SM_A + mb * 64 * 16, 0, 128);
     int acc[8];
     zero(acc);
     __syncwarp();
     wg_fence();
-    mma_n16<0>(acc, at(da, 0, PS3), at(db, W_S4 / 16, 0));
-    mma_n16<0>(acc, at(da, 2 * PS3, 1), at(db, (W_S4 + 512) / 16, 0));
+    mma_n16<0>(acc, at(da, 0, G::PS3), at(db, W_S4 / 16, 0));
+    mma_n16<0>(acc, at(da, 2 * G::PS3, 1), at(db, (W_S4 + 512) / 16, 0));
     wg_commit();
     wg_wait<0>();
     fence_regs(acc);
@@ -362,19 +365,19 @@ __device__ __forceinline__ void stage4(uint32_t sbase, uint8_t* smem, const uint
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int tap = 8 * j + 2 * t + e;
-          if (tap < 9) share[tap * SHARE_STRIDE + p] = acc[4 * j + 2 * half + e];
+          if (tap < 9) share[tap * G::SHARE_STRIDE + p] = acc[4 * j + 2 * half + e];
         }
     }
   }
   __syncthreads();
-  for (int o = threadIdx.x; o < TH * TW; o += NTHREADS) {
-    const int r = o / TW, c = o - (o / TW) * TW;
+  for (int o = threadIdx.x; o < G::TH * G::TW; o += NTHREADS) {
+    const int r = o / G::TW, c = o - (o / G::TW) * G::TW;
     const int fr = tl.ty0 + r, fc = tl.tx0 + c;
     if (fr >= H || fc >= W) continue;
-    const int* sh = share + r * P3 + c;
+    const int* sh = share + r * G::P3 + c;
     int u = 0;
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) u += sh[tap * SHARE_STRIDE + tap / 3 * P3 + tap % 3];
+    for (int tap = 0; tap < 9; ++tap) u += sh[tap * G::SHARE_STRIDE + tap / 3 * G::P3 + tap % 3];
     const long long v = (long long)u + b4;
     const long long res = (v * mul4 + (1LL << (shift4 - 1))) >> shift4;
     const size_t i = size_t(fr) * W + fc;
@@ -385,17 +388,19 @@ __device__ __forceinline__ void stage4(uint32_t sbase, uint8_t* smem, const uint
 
 // The window of a tile, x - 128 inside the frame bounds and 0 outside,
 // loaded into registers (issued early, stored to shared memory later).
-__device__ __forceinline__ void load_window(uint32_t (&pre)[RAW_PER_THREAD], const uint8_t* x,
+template <class G>
+__device__ __forceinline__ void load_window(uint32_t (&pre)[G::RAW_PER_THREAD], const uint8_t* x,
                                             int H, int W, Tile tl, Bounds bd) {
   const uint8_t* xf = x + size_t(tl.f) * H * W;
 #pragma unroll
-  for (int k = 0; k < RAW_PER_THREAD; ++k) {
+  for (int k = 0; k < G::RAW_PER_THREAD; ++k) {
     const int i = threadIdx.x + k * NTHREADS;
-    const int r = tl.ty0 - HALO + i / P0, c = tl.tx0 - HALO + i % P0;
-    pre[k] = (i < RAW && bd.inside(r, c)) ? uint32_t(xf[size_t(r) * W + c]) : 128u;
+    const int r = tl.ty0 - G::HALO + i / G::P0, c = tl.tx0 - G::HALO + i % G::P0;
+    pre[k] = (i < G::RAW && bd.inside(r, c)) ? uint32_t(xf[size_t(r) * W + c]) : 128u;
   }
 }
 
+template <class G>
 __global__ void __launch_bounds__(NTHREADS, 1)
 qvrcnn_fused_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
                     const int8_t* __restrict__ wsplit, const int* __restrict__ vec_g,
@@ -403,8 +408,8 @@ qvrcnn_fused_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
   extern __shared__ __align__(128) uint8_t smem[];
   const uint32_t sbase = smem_addr(smem);
   for (int i = threadIdx.x; i < W_BYTES / 16; i += NTHREADS)
-    cp_async16(sbase + SM_W + i * 16, wsplit + i * 16);
-  int* vec = reinterpret_cast<int*>(smem + SM_VEC);
+    cp_async16(sbase + G::SM_W + i * 16, wsplit + i * 16);
+  int* vec = reinterpret_cast<int*>(smem + G::SM_VEC);
   for (int i = threadIdx.x; i < VEC_LEN; i += NTHREADS) {  // [stage][row][C] -> [ch][row]
     const int row_start = i < 256 ? 0 : (i < 448 ? 256 : 448);
     const int cout = i < 256 ? 64 : 48, ch0 = i < 256 ? 0 : (i < 448 ? 64 : 112);
@@ -412,95 +417,106 @@ qvrcnn_fused_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
     vec[4 * ch + row] = vec_g[i];
   }
 
-  const int tiles_x = cdiv(W, TW), per_frame = cdiv(H, TH) * tiles_x;
+  const int tiles_x = cdiv(W, G::TW), per_frame = cdiv(H, G::TH) * tiles_x;
   const int total = nframes * per_frame;
-  uint32_t pre[RAW_PER_THREAD];
+  uint32_t pre[G::RAW_PER_THREAD];
   int tile = blockIdx.x;
-  load_window(pre, x, H, W, tile_at(tile, tiles_x, per_frame), bd);
+  load_window<G>(pre, x, H, W, tile_at<G>(tile, tiles_x, per_frame), bd);
   cp_async_wait_all();
   fence_async_smem();
   __syncthreads();
 
-  int8_t* raw = reinterpret_cast<int8_t*>(smem + SM_RAW);
+  int8_t* raw = reinterpret_cast<int8_t*>(smem + G::SM_RAW);
   for (; tile < total; tile += gridDim.x) {
-    const Tile tl = tile_at(tile, tiles_x, per_frame);
+    const Tile tl = tile_at<G>(tile, tiles_x, per_frame);
 #pragma unroll
-    for (int k = 0; k < RAW_PER_THREAD; ++k) {
+    for (int k = 0; k < G::RAW_PER_THREAD; ++k) {
       const int i = threadIdx.x + k * NTHREADS;
-      if (i < RAW) raw[i] = int8_t(int(pre[k]) - 128);
+      if (i < G::RAW) raw[i] = int8_t(int(pre[k]) - 128);
     }
     __syncthreads();
     if (tile + int(gridDim.x) < total)
-      load_window(pre, x, H, W, tile_at(tile + gridDim.x, tiles_x, per_frame), bd);
+      load_window<G>(pre, x, H, W, tile_at<G>(tile + gridDim.x, tiles_x, per_frame), bd);
     // expanded window on S1's pitch: position (r, c) holds window (r + i, c + j)
     // as byte 5i + j
-    for (int e = threadIdx.x; e < EXP; e += NTHREADS) {
+    for (int e = threadIdx.x; e < G::EXP; e += NTHREADS) {
       uint32_t w[4] = {0, 0, 0, 0};
 #pragma unroll
       for (int j = 0; j < 15; ++j) {
-        const int idx = (e / P1 + j / 5) * P0 + e % P1 + j % 5;
-        const uint32_t b = idx < RAW ? uint32_t(uint8_t(raw[idx])) : 0u;
+        const int idx = (e / G::P1 + j / 5) * G::P0 + e % G::P1 + j % 5;
+        const uint32_t b = idx < G::RAW ? uint32_t(uint8_t(raw[idx])) : 0u;
         w[j >> 2] |= b << (8 * (j & 3));
       }
-      *reinterpret_cast<uint4*>(smem + SM_B + e * 16) = make_uint4(w[0], w[1], w[2], w[3]);
+      *reinterpret_cast<uint4*>(smem + G::SM_B + e * 16) = make_uint4(w[0], w[1], w[2], w[3]);
     }
     fence_async_smem();
     __syncthreads();
-    stage1(sbase, smem, tl, bd);
+    stage1<G>(sbase, smem, tl, bd);
     fence_async_smem();
     __syncthreads();
-    stage2(sbase, smem, tl, bd);
+    stage2<G>(sbase, smem, tl, bd);
     fence_async_smem();
     __syncthreads();
-    stage3(sbase, smem, tl, bd);
+    stage3<G>(sbase, smem, tl, bd);
     fence_async_smem();
     __syncthreads();
     const size_t frame = size_t(tl.f) * H * W;
-    stage4(sbase, smem, x + frame, y + frame, H, W, tl, b4, mul4, shift4);
+    stage4<G>(sbase, smem, x + frame, y + frame, H, W, tl, b4, mul4, shift4);
   }
 }
 
-int sm_count[MAX_DEVICES] = {};  // 0 until the device's first launch
-
-}  // namespace
-
-extern "C" {
-
-// Launch on `stream` (a cudaStream_t) on the current device: one block per
-// SM (at most one per tile). Returns the cudaError_t of the device query,
-// of the one-time attribute calls for this device, or of the launch
-// (cudaGetLastError); 0 on success.
-int qvrcnn_fused_forward(const void* x, void* y, const void* wsplit, const void* vec, int B,
-                         int H, int W, int row_lo, int row_hi, int col_lo, int col_hi, int b4,
-                         int mul4, int shift4, void* stream) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return int(err);
-  if (dev >= MAX_DEVICES) return int(cudaErrorInvalidDevice);
-  if (sm_count[dev] == 0) {
-    err = cudaFuncSetAttribute(qvrcnn_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_BYTES);
-    if (err != cudaSuccess) return int(err);
-    int sms = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return int(err);
-    sm_count[dev] = sms;
-  }
-  Bounds bd{row_lo > 0 ? row_lo : 0, row_hi < H ? row_hi : H,
-            col_lo > 0 ? col_lo : 0, col_hi < W ? col_hi : W};
-  const int total = B * cdiv(H, TH) * cdiv(W, TW);
-  const int grid = total < sm_count[dev] ? total : sm_count[dev];
-  qvrcnn_fused_kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+// Launch instance G on `stream`: one block per SM (at most one per tile);
+// the dynamic shared-memory attribute is set once per device.
+template <class G>
+int launch(const void* x, void* y, const void* wsplit, const void* vec, int B, int H, int W,
+           Bounds bd, int b4, int mul4, int shift4, void* stream) {
+  static int sm_count[split::MAX_DEVICES] = {};  // 0 until the device's first launch
+  int sms = 0;
+  const int err = split::prepare(qvrcnn_fused_kernel<G>, G::SMEM_BYTES, sm_count, sms);
+  if (err != 0) return err;
+  const int total = B * cdiv(H, G::TH) * cdiv(W, G::TW);
+  const int grid = total < sms ? total : sms;
+  qvrcnn_fused_kernel<G><<<grid, NTHREADS, G::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(x), static_cast<uint8_t*>(y),
       static_cast<const int8_t*>(wsplit), static_cast<const int*>(vec), B, H, W, bd, b4, mul4,
       shift4);
   return int(cudaGetLastError());
 }
 
+}  // namespace
+
+extern "C" {
+
+// Launch the th x tw instance (one of QVRCNN_TILES) on `stream` (a
+// cudaStream_t) on the current device. Returns the cudaError_t of the
+// device query, of the one-time attribute call for this device and
+// instance, or of the launch (cudaGetLastError); cudaErrorInvalidValue for
+// a tile that is not compiled; 0 on success.
+int qvrcnn_fused_forward(const void* x, void* y, const void* wsplit, const void* vec, int B,
+                         int H, int W, int row_lo, int row_hi, int col_lo, int col_hi, int b4,
+                         int mul4, int shift4, int th, int tw, void* stream) {
+  const Bounds bd{row_lo > 0 ? row_lo : 0, row_hi < H ? row_hi : H,
+                  col_lo > 0 ? col_lo : 0, col_hi < W ? col_hi : W};
+#define QVRCNN_LAUNCH(TH, TW)                                                                  \
+  if (th == TH && tw == TW)                                                                    \
+    return launch<Geo3<TH, TW>>(x, y, wsplit, vec, B, H, W, bd, b4, mul4, shift4, stream);
+  QVRCNN_TILES(QVRCNN_LAUNCH)
+#undef QVRCNN_LAUNCH
+  return int(cudaErrorInvalidValue);
+}
+
 const char* qvrcnn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int qvrcnn_smem_bytes() { return SMEM_BYTES; }
+// Dynamic shared memory of the th x tw instance's blocks; 0 for a tile
+// that is not compiled.
+int qvrcnn_smem_bytes(int th, int tw) {
+#define QVRCNN_SMEM(TH, TW) \
+  if (th == TH && tw == TW) return Geo3<TH, TW>::SMEM_BYTES;
+  QVRCNN_TILES(QVRCNN_SMEM)
+#undef QVRCNN_SMEM
+  return 0;
+}
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 // Generation 3's split-branch tile design (qvrcnn_fused.cu) as a template,
 // for the kernels of generations 2 (qvrcnn_pair.cu: folded epilogue, frame
 // pairs) and 1 (qvrcnn_literal.cu: literal BLU chain, uint8 activations,
-// int16 residual). Generation 3 keeps its own copy of this code for now
-// (ROADMAP Queue 4 makes it an instance of this template).
+// int16 residual). Generation 3 takes its tile's regions (`Geometry`) and
+// launch bookkeeping (`prepare`) from here but keeps its own copy of the
+// stages for now (ROADMAP Queue 2 item 1 makes it an instance of `run`).
 //
 // The design, as qvrcnn_fused.cu:31-63 describes it: split branch GEMMs
 // with no zero taps; `wgmma` int8 with both operands in shared memory;

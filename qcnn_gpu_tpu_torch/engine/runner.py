@@ -4,7 +4,7 @@ Counterpart of `qcnn_gpu_tpu/engine/runner.py:Engine` on one torch
 device. A program is the restorer for one (qp, device, program name):
 
   impl="kernel"     generation 3, the counterpart of the JAX engine's
-                    "pallas" (no H100 table picks another generation yet)
+                    "pallas" (no H100 sweep has shown generation 2 faster)
   impl="kernel3"    the one-frame fused kernel, `ops/fused.fused_forward`
   impl="kernel2"    the frame-pair kernel, `ops/pair.pair_forward`
   impl="kernel1"    the literal-requant kernel, `ops/literal.literal_forward`
@@ -14,9 +14,14 @@ device. A program is the restorer for one (qp, device, program name):
                     else generation 1 (`ops/literal.literal_refusal`), else
                     a ValueError that names `--impl reference`
 
-A kernel runs as its CUDA kernel on a CUDA device and as its plain
-version on the CPU. The program name (`program_name(qp)`), and so the
-cache key and `RunRecord.impl`, is the generation that runs ("kernel1",
+Generation 3 is built through the tuned table (`ops/tuning.build_tuned`),
+which gives its tile per geometry class and batch 1 or not, so its
+program cache is keyed by (qp, device, "kernel3", geometry class, batch
+== 1), as the JAX engine's by its geometry class (runner.py:105-120).
+Generations 2 and 1 have one tile, 24x40. A kernel runs as its CUDA
+kernel on a CUDA device and as its plain version on the CPU (which no
+tile changes). The program name (`program_name(qp)`), and so the cache
+key and `RunRecord.impl`, is the generation that runs ("kernel1",
 "kernel2", "kernel3") or "reference"; "+duplex" is appended when the
 duplex transport served. `auto` never falls back to the reference net,
 which would be a silent slow path: a table no kernel computes raises.
@@ -72,9 +77,10 @@ from qcnn_gpu_tpu_torch.engine.packed import DuplexTransport, make_duplex_restor
 from qcnn_gpu_tpu_torch.engine.stream import Staging, pipeline, pipeline_restore, writer
 from qcnn_gpu_tpu_torch.models.engine_params import EngineParams
 from qcnn_gpu_tpu_torch.models.qvrcnn import MergedParams, make_forward
-from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, fused_forward, window_refusal
+from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, window_refusal
 from qcnn_gpu_tpu_torch.ops.literal import LiteralWeights, literal_forward, literal_refusal
 from qcnn_gpu_tpu_torch.ops.pair import pair_forward
+from qcnn_gpu_tpu_torch.ops.tuning import build_tuned, geometry_class
 from qcnn_gpu_tpu_torch.parallel.mesh import Mesh
 from qcnn_gpu_tpu_torch.parallel.spatial import make_sharded_forward, pad_batch, sharded_impl
 
@@ -86,11 +92,11 @@ _READERS = {
     "hwcn": read_static_qfp_hwcn,
     "pc": read_static_qfp_pc,  # per-channel INT4 extension
 }
-# generation -> (its forward, the keyword and carrier of its weights)
+# generations 2 and 1 -> (their forward, the keyword and carrier of their
+# weights); generation 3 comes from the tuned table
 _GENERATIONS = {
     "kernel1": (literal_forward, "lw", LiteralWeights),
     "kernel2": (pair_forward, "fw", FusedWeights),
-    "kernel3": (fused_forward, "fw", FusedWeights),
 }
 
 
@@ -199,15 +205,25 @@ class Engine:
                 self._names[qp] = "kernel3" if self.impl == "kernel" else self.impl
         return self._names[qp]
 
-    def _program(self, qp: int) -> Callable:
+    def _program(self, qp: int, geo, batch: int) -> Callable:
+        """The program for frames of `geo` (H, W) in batches of `batch`.
+        Generation 3 comes from the tuned table, so its key adds the
+        geometry class and whether the batch is 1; the others' key adds
+        neither, and under a mesh (which keeps 24x40) it adds the mesh."""
         name = self.program_name(qp)
-        key = (qp, str(self.device), name) + (() if self.mesh is None else (self.mesh.label(),))
+        key = (qp, str(self.device), name)
+        if self.mesh is not None:
+            key += (self.mesh.label(),)
+        elif name == "kernel3":
+            key += (geometry_class(*geo), batch == 1)
         if key not in self._programs:
             p = self._params(qp)
             if self.mesh is not None:
                 run = make_sharded_forward(p, self.mesh, impl=name)
             elif name == "reference":
                 run = make_forward(p, device=self.device)
+            elif name == "kernel3":
+                run = build_tuned(p, self.device, *geo, batch)
             else:
                 forward, kw, carrier = _GENERATIONS[name]
                 run = functools.partial(forward, **{kw: carrier.from_engine(p, self.device)})
@@ -232,7 +248,7 @@ class Engine:
         if self.mesh is not None:  # N up to a multiple of dp
             frames = pad_batch(frames, -(-n // self.mesh.shape["dp"]) * self.mesh.shape["dp"])
         x = torch.from_numpy(np.ascontiguousarray(frames, np.uint8)).to(self.device)
-        return self._program(qp)(x)[:n].cpu().numpy()
+        return self._program(qp, frames.shape[-2:], frames.shape[0])(x)[:n].cpu().numpy()
 
     def restore_stream(
         self, frames: np.ndarray, qp: int, depth: int = 3, transport: str = "raw"
@@ -266,7 +282,10 @@ class Engine:
         self.last_stream = stream
         return out
 
-    def _restore_stream_raw(self, frames, qp: int, depth: int, out: np.ndarray) -> None:
+    def _restore_stream_raw(self, frames, qp: int, depth: int, out: np.ndarray,
+                            batch: Optional[int] = None) -> None:
+        """Stream `frames` through the program for batches of `batch`
+        (default the stream's own, min(batch_frames, N))."""
         bs = self.batch_frames
         n = frames.shape[0]
         cut = n - n % bs if self.mesh is not None else n
@@ -276,7 +295,8 @@ class Engine:
             batches = itertools.chain(batches, [pad_batch(frames[cut:], bs)])
             sink = _cropped(sink, n)
         pipeline_restore(
-            self._program(qp), batches, depth, device=self.device, on_output=sink,
+            self._program(qp, frames.shape[-2:], batch or min(bs, n)), batches, depth,
+            device=self.device, on_output=sink,
             staging=self._stage(frames.shape[-2:], depth),
         )
 
@@ -310,7 +330,7 @@ class Engine:
                 st.release(s)
             if i:
                 link_s.append(time.perf_counter() - t0)
-        run = self._program(qp)
+        run = self._program(qp, key[1], bs)
         xd = torch.from_numpy(x.copy()).to(self.device)
         run(xd)  # warm-up
         dev_s = []
@@ -350,7 +370,7 @@ class Engine:
         key = (qp, tuple(geo), bs)
         tr = self._duplex.get(key)
         if tr is None or tr.staging.slots < depth + 2:
-            tr = make_duplex_restore(self._program(qp), self.device,
+            tr = make_duplex_restore(self._program(qp, tuple(geo), bs), self.device,
                                      staging=Staging(self.device, depth + 2))
             tr.reserve((bs,) + tuple(geo))
             self._duplex[key] = tr
@@ -372,7 +392,7 @@ class Engine:
             stream[k] = sum(tr.stats[k][i0:])
         stream.update({k: tr.stats[k] - v for k, v in steps.items()})
         if cut < n:
-            self._restore_stream_raw(frames[cut:], qp, depth, out[cut:])
+            self._restore_stream_raw(frames[cut:], qp, depth, out[cut:], batch=bs)
             stream["h2d_bytes"] += frames[cut:].nbytes
             stream["d2h_bytes"] += frames[cut:].nbytes
             stream["raw_tail_frames"] = n - cut
@@ -393,7 +413,8 @@ class Engine:
         bs = self.batch_frames
         frames = max(frames, 1)
         z = np.zeros(((depth + 2) * bs + frames % bs, height, width), np.uint8)
-        self._restore_stream_raw(z, qp, depth, np.empty_like(z))
+        # the program the stream of `frames` will use
+        self._restore_stream_raw(z, qp, depth, np.empty_like(z), batch=min(bs, frames))
         if transport == "auto":
             transport = self._pick_transport(z[:min(bs, frames)], qp)["transport"]
         if transport == "duplex" and frames >= bs:

@@ -14,7 +14,8 @@ GEMMs (which channel planes and taps each chunk's two halves read, and
 which output channels it writes), `split_operand` packs the weights into
 the shared-memory image those chunks read, and `layout(th, tw)` gives a
 tile's activation regions (`TILE_H`, `TILE_W`, `PITCH`, `ROWS`, `BLOCKS`,
-`EXPANDED` and `PLANE` are generation 3's). `csrc/qvrcnn_fused.cu` and
+`EXPANDED` and `PLANE` are those of its default tile; `TILES` lists the
+tiles generation 3 is compiled at). `csrc/qvrcnn_fused.cu` and
 `csrc/qvrcnn_split.cuh` mirror every one of them.
 
 Frame bounds `[row_lo, row_hi) x [col_lo, col_hi)` (default the whole
@@ -119,10 +120,27 @@ def layout(th: int, tw: int) -> Layout:
     return Layout(th, tw, pitch, rows, blocks, blocks[0] * 64 + 3 * pitch[1], plane)
 
 
-# generation 3's tile (and generation 1's): 24 divides 1080, 40 divides 1920
+# generation 3's default tile (and generation 1's only one): 24 divides
+# 1080, 40 divides 1920
 TILE_H, TILE_W = 24, 40
 _L3 = layout(TILE_H, TILE_W)
 PITCH, ROWS, BLOCKS, EXPANDED, PLANE = _L3.pitch, _L3.rows, _L3.blocks, _L3.expanded, _L3.plane
+# the tiles generation 3 is compiled at (csrc/qvrcnn_fused.cu
+# QVRCNN_TILES), the default first; ops/tuning.py picks one per geometry
+TILES = ((24, 40), (24, 32), (32, 32))
+
+
+def check_tile(tile) -> Tuple[int, int]:
+    """`tile` as a (th, tw) pair of ints; ValueError unless it is one of
+    the compiled TILES."""
+    try:
+        th, tw = (int(v) for v in tile)
+    except (TypeError, ValueError):
+        raise ValueError(f"a tile is a (th, tw) pair, got {tile!r}") from None
+    if (th, tw) not in TILES:
+        raise ValueError(f"tile {th}x{tw} is not a compiled instance of generation 3; "
+                         f"compiled: {', '.join(f'{a}x{b}' for a, b in TILES)}")
+    return th, tw
 
 
 @dataclasses.dataclass(frozen=True)
@@ -362,7 +380,7 @@ def fused_forward_reference(
     return apply_residual_u8(x_u8, res)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 
 
 def fused_forward(
@@ -372,19 +390,23 @@ def fused_forward(
     row_hi: Optional[int] = None,
     col_lo: int = 0,
     col_hi: Optional[int] = None,
+    tile: Tuple[int, int] = (TILE_H, TILE_W),
 ) -> torch.Tensor:
     """Restore uint8 frames [B, H, W] through the fused network.
 
-    A CUDA tensor goes through the CUDA kernel (one launch on the current
-    stream; counted in `fused_forward.launches`) or raises. A CPU tensor
-    goes through `fused_forward_reference`, the kernel's plain version."""
+    A CUDA tensor goes through the CUDA kernel's `tile` instance (one of
+    TILES, else ValueError; one launch on the current stream, counted in
+    `fused_forward.launches` and, by tile, `fused_forward.tile_launches`)
+    or raises. A CPU tensor goes through `fused_forward_reference`, the
+    kernel's plain version, which no tile changes."""
+    th, tw = check_tile(tile)
     check_frames(x_u8, fw.vec.device)
     if x_u8.device.type == "cpu":
         return fused_forward_reference(x_u8, fw, row_lo, row_hi, col_lo, col_hi)
     if x_u8.device.type != "cuda":
         raise ValueError(f"no kernel for device {x_u8.device}")
     b, h, w = x_u8.shape
-    tiles = b * -(-h // TILE_H) * -(-w // TILE_W)
+    tiles = b * -(-h // th) * -(-w // tw)
     if tiles > MAX_TILES_PER_LAUNCH:
         raise ValueError(f"at most {MAX_TILES_PER_LAUNCH} tiles per launch, got {tiles}")
     row_lo, row_hi, col_lo, col_hi = _bounds(h, w, row_lo, row_hi, col_lo, col_hi)
@@ -397,11 +419,13 @@ def fused_forward(
             x_u8.data_ptr(), out.data_ptr(),
             fw.split.data_ptr(), fw.vec.data_ptr(),
             b, h, w, row_lo, row_hi, col_lo, col_hi,
-            fw.b4, fw.mul4, fw.shift4, build.stream_of(x_u8),
+            fw.b4, fw.mul4, fw.shift4, th, tw, build.stream_of(x_u8),
         )
     build.check(KERNEL, err)
     fused_forward.launches += 1
+    fused_forward.tile_launches[th, tw] += 1
     return out
 
 
 fused_forward.launches = 0
+fused_forward.tile_launches = dict.fromkeys(TILES, 0)

@@ -15,10 +15,11 @@ prints one line each with the card's name and power limit. v2 and v3
 need a table inside the solver's saturation window (every committed
 model is); v1 takes any table.
 
-`profile_pallas.py`'s row-tile (th) sweep and XLA-prep timing measure TPU
-layout knobs and the XLA window gather in front of the Pallas call; the
-port's kernels have no tile knob yet and read the frame directly, so
-neither has a counterpart here.
+`profile_pallas.py`'s row-tile (th) sweep has its counterpart in
+`tools/sweep_kernel.py` (generation 3's compiled tiles at six
+geometries); its XLA-prep timing measures the XLA window gather in front
+of the Pallas call, and the port's kernels read the frame directly, so
+it has none. Here every generation runs at its default tile, 24x40.
 """
 
 from __future__ import annotations

@@ -44,7 +44,13 @@ import numpy as np
 import torch
 
 from qcnn_gpu_tpu_torch.ops import build
-from qcnn_gpu_tpu_torch.tools import events_ms, smi
+from qcnn_gpu_tpu_torch.tools import (
+    PEAK_BF16_FLOPS,
+    PEAK_FP32_FLOPS,
+    PEAK_INT8_OPS,
+    events_ms,
+    smi,
+)
 
 KERNEL = "mma_probe"
 CHAIN = 16
@@ -67,7 +73,8 @@ TYPES = {
     "bf16": (torch.bfloat16, torch.float32, 1),
     "f32": (torch.float32, torch.float32, 2),
 }
-PEAK_TOPS = {"int8": 1979.0, "bf16": 989.0, "f32": 67.0}  # H100 SXM data sheet, dense
+PEAK_TOPS = {"int8": PEAK_INT8_OPS / 1e12, "bf16": PEAK_BF16_FLOPS / 1e12,  # H100 SXM, dense
+             "f32": PEAK_FP32_FLOPS / 1e12}
 _ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _ISSUE_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 # the issue-rate kernel: threads per block, accumulators per warp, MMA depth

@@ -29,7 +29,12 @@ def test_engine_restore_matches_jax_engine(impl):
     assert (eng.restore(x, 27) == want).all()
     assert (eng.restore_stream(x, 27) == want).all()  # batches 2 + 2 + 1
     # the program is named for the generation that runs: kernel and auto are 3
-    assert list(eng._programs) == [(27, "cpu", "reference" if impl == "reference" else "kernel3")]
+    # (the shipped table keeps generation 3), keyed by its geometry class
+    from qcnn_gpu_tpu_torch.ops.tuning import geometry_class
+
+    key = ((27, "cpu", "reference") if impl == "reference"
+           else (27, "cpu", "kernel3", geometry_class(19, 31), False))
+    assert list(eng._programs) == [key]
 
 
 def test_cli_run_matches_jax_cli(tmp_path, capsys):

@@ -98,20 +98,28 @@ def test_split_operand_equals_fused_weights_split():
 
 
 def test_kernel_source_mirrors_the_layout():
-    """csrc/qvrcnn_fused.cu states every layout constant it derives in a
-    static_assert; each equals the Python layout the emulation runs."""
-    src = open(os.path.join(REPO, "qcnn_gpu_tpu_torch", "csrc", "qvrcnn_fused.cu")).read()
+    """csrc/qvrcnn_fused.cu states, in a static_assert for every compiled
+    tile instance, the regions it derives (blocks, expanded positions,
+    planes, buffers, shared memory), and its weight-image constants; each
+    equals the Python layout the emulation runs. The instances are
+    ops/fused.TILES, listed once in the source (QVRCNN_TILES), 24x40
+    first."""
+    csrc = os.path.join(REPO, "qcnn_gpu_tpu_torch", "csrc")
+    src = open(os.path.join(csrc, "qvrcnn_fused.cu")).read()
     got = dict(re.findall(r"static_assert\((\w+) == (\d+)", src))
-    want = {
-        "TH": TH, "TW": TW, "P0": P[0], "P1": P[1], "P2": P[2], "P3": P[3],
-        "MB1": FU.BLOCKS[0], "MB2": FU.BLOCKS[1], "MB3": FU.BLOCKS[2], "MB4": FU.BLOCKS[3],
-        "EXP": FU.EXPANDED, "PS1": PL[0], "PS2": PL[1], "PS3": PL[2],
-        "BUF_A_BYTES": FU.layout(TH, TW).buf_a, "BUF_B_BYTES": FU.layout(TH, TW).buf_b,
-        "W_BYTES": FU.SPLIT_BYTES,
-        "N_S2": len(FU.SPLIT_CHUNKS[0]), "N_S3": len(FU.SPLIT_CHUNKS[1]),
-        "N_S4": len(FU.SPLIT_CHUNKS[2]),
-    }
+    want = {"W_BYTES": FU.SPLIT_BYTES, "N_S2": len(FU.SPLIT_CHUNKS[0]),
+            "N_S3": len(FU.SPLIT_CHUNKS[1]), "N_S4": len(FU.SPLIT_CHUNKS[2])}
     assert {k: int(v) for k, v in got.items()} == want
+    regions = {(int(th), int(tw)): tuple(int(v) for v in vals.split(", ")) for th, tw, vals in
+               re.findall(r"static_assert\(regions<(\d+), (\d+)>\(([\d, ]+)\), \"\"\)", src)}
+    tiles = re.search(r"#define QVRCNN_TILES\(X\) (.*)", src).group(1)
+    assert [tuple(map(int, t)) for t in re.findall(r"X\((\d+), (\d+)\)", tiles)] == list(FU.TILES)
+    assert FU.TILES[0] == (TH, TW) and set(regions) == set(FU.TILES)
+    for (th, tw), got_t in regions.items():
+        lay = FU.layout(th, tw)
+        assert got_t == (*lay.blocks, lay.expanded, *lay.plane, lay.bytes,
+                         FU.SPLIT_BYTES + 160 * 16 + lay.bytes), (th, tw)
+    assert regions[TH, TW][:8] == (*FU.BLOCKS, FU.EXPANDED, *PL)
 
 
 @pytest.mark.parametrize("model", [22, 37, "int4"])

@@ -27,6 +27,7 @@ from qcnn_gpu_tpu_torch.engine.runner import Engine
 from qcnn_gpu_tpu_torch.models.engine_params import EngineParams
 from qcnn_gpu_tpu_torch.ops import fused as FU
 from qcnn_gpu_tpu_torch.ops import pair as PA
+from qcnn_gpu_tpu_torch.ops.tuning import geometry_class
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GENERATION = {"kernel2": PA.pair_forward, "kernel3": FU.fused_forward}
@@ -75,8 +76,9 @@ def test_engine_kernel2_equals_kernel3():
         eng = Engine(device="cpu", impl=impl, batch_frames=3)
         eng.set_model(27, p)
         out[impl] = eng.restore_stream(x, 27)  # batches 3 + 2
-        assert list(eng._programs) == [(27, "cpu", impl)]
-        assert eng._programs[(27, "cpu", impl)].func is GENERATION[impl]
+        key = (27, "cpu", impl) + ((geometry_class(19, 31), False) if impl == "kernel3" else ())
+        assert list(eng._programs) == [key]
+        assert eng._programs[key].func is GENERATION[impl]
     assert (out["kernel2"] == out["kernel3"]).all()
 
 
@@ -114,7 +116,8 @@ def test_impl_runs_its_generation(impl, name):
     x = _frames(3, 9, 11, seed=1)
     want = FU.fused_forward_reference(torch.from_numpy(x), FU.FusedWeights.from_engine(p, "cpu")).numpy()
     assert (eng.restore_stream(x, 37) == want).all()
-    run = eng._programs[(37, "cpu", name)]
+    key = (37, "cpu", name) + ((geometry_class(9, 11), False) if name == "kernel3" else ())
+    run = eng._programs[key]
     assert getattr(run, "func", None) is GENERATION.get(name)
 
 

@@ -137,7 +137,8 @@ def test_packed_d2h_streams_on_the_card():
     _cuda()
     eng = _engine("raw")
     frames = _scene(2)
-    packed, decode = P.make_packed_restore(eng._program(37), capacity_frac=1.0)  # room for all
+    packed, decode = P.make_packed_restore(eng._program(37, frames.shape[-2:], 4),
+                                           capacity_frac=1.0)  # room for all
     got = []
     pipeline_restore(packed, [frames[:4], frames[4:8]], 2, device="cuda",
                      on_output=lambda f: got.append([np.array(a) for a in f]))
