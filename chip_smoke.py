@@ -137,14 +137,32 @@ nvcc each, all at once) and then:
        turns (base tuned tuned base, CUDA-graph replays: device time, not
        the host's enqueue), the tile served; (c) `cli run
        --config` (batch_frames 1) on 8 frames of 416x240: the table's
-       instance launched, no other tile.
+       instance launched, no other tile;
+  19   meshes whose axes span processes, host tiling and the native Y
+       reader: (a) `DistributedRunner` in 2 gloo processes on cuda:0 over
+       global meshes (`make_global_mesh`) 1x2, 1x4, 1x2x2 and 1x1x2, the
+       QP37 model at 1920x1080 batch 4 on phase 4's anchors, each rank
+       passing its slice: both ranks return the global batch equal to
+       phase 4's recon, generation 3 launched once per position a rank
+       owns, the halo bytes each rank sends and receives, ms per call in
+       turns against the same mesh in one process; (b) the TP forwards
+       across the 2 ranks: `make_tp_int8_forward` (QP37, tp 2, 832x480)
+       equal to generation 3, `make_tp_wide_forward` (c256 b10, tp 2, one
+       frame) equal to phase 16's one-process result; (c) `restore_tiled`
+       over `Engine.restore` (540x960 tiles, 4 windows a call) at
+       3840x2160 through generation 3 and the reference net: tiled equal
+       to whole, generation 3's launches checked (8 tiled, 1 whole, 0
+       under the reference net), peak device memory and ms/frame of each;
+       (d) the native reader and writer (`native/yuvio.cpp`) against NumPy
+       on phase 4's 16 frames: equal, both times, and `run_sequence`'s
+       wall time from files to files with each.
 
 The committed 1080p and class-A golden PSNRs need matplotlib's sample
 data, which the smoke does not assume: `tests/test_torch_golden.py`
 checks them (slow-marked, on the CPU).
 
-Every path (phases 4, 8, 9, 10, each of 11's, 12's, 14's, 15's and 18's) runs with the
-launch counts set to 0 just before it and read just after; a kernel of
+Every path (phases 4, 8, 9, 10, each of 11's, 12's, 14's, 15's, 18's and 19's) runs with
+the launch counts set to 0 just before it and read just after; a kernel of
 the path that was not launched fails the run. Phase 16's paths count
 their library GEMMs the same way (`conv_int8.launches`,
 `conv_fp8.launches`); they launch none of the four kernels. No phase catches an error: any
@@ -812,13 +830,16 @@ def main() -> int:
     tmp_dir.cleanup()
 
     # ---- phase 16: the wide family and tensor parallelism (library GEMMs)
-    wide_path(card, anchor, recon, p37)
+    wide_one = wide_path(card, anchor, recon, p37)
 
     # ---- phase 17: (dp, sp)-sharded training (virtual meshes over cuda:0)
     sharded_training(card)
 
     # ---- phase 18: the tuned table and generation 3's tile instances
     tiles_18 = tuned_path(cli, card, zero_counts, wrappers, models, fws, cases, max_errs)
+
+    # ---- phase 19: meshes across processes, host tiling, the native reader
+    span_path(card, anchor, recon, p37, wide_one)
 
     # least time for the same work: operations over the int8 peak, bytes
     # (each input read once, each output written once) over HBM's rate
@@ -853,8 +874,8 @@ def main() -> int:
     return 0
 
 
-# phase 15 (d): one rank of DistributedRunner on a 2x2 virtual mesh over
-# cuda:0; argv: repo, rank, world, port, work dir
+# phase 15 (d): one rank of DistributedRunner on a 4x2 global mesh, 2x2 a
+# rank over cuda:0; argv: repo, rank, world, port, work dir
 MESH_WORKER = textwrap.dedent("""
     import json, sys
     sys.path.insert(0, sys.argv[1])
@@ -863,13 +884,13 @@ MESH_WORKER = textwrap.dedent("""
     from qcnn_gpu_tpu_torch.engine.runner import read_model
     from qcnn_gpu_tpu_torch.ops.fused import fused_forward
     from qcnn_gpu_tpu_torch.parallel.distributed import DistributedRunner, initialize
-    from qcnn_gpu_tpu_torch.parallel.mesh import make_mesh
+    from qcnn_gpu_tpu_torch.parallel.mesh import make_global_mesh
 
     here, rank, world, port, d = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
     initialize(f"tcp://127.0.0.1:{port}", world, rank)
     dev = torch.device("cuda", 0)
     runner = DistributedRunner(read_model(f"{here}/assets/golden/model_q37.data"),
-                               make_mesh(2, 2, devices=[dev] * 4), impl="auto")
+                               make_global_mesh(2 * world, 2, [dev] * 4), impl="auto")
     local = np.array_split(np.load(f"{d}/anchor.npy"), world)[rank]
     fused_forward.launches = 0
     got = runner.restore(local)
@@ -1023,7 +1044,8 @@ def mesh_path(cli_run, tmp: str, card: str, zero_counts, counts, models, fws, ma
         fail(f"cli run --config: {rec['mesh']}, {n_c} launches")
 
     # (d) DistributedRunner across 2 processes (gloo), 4 frames each on a
-    # 2x2 virtual mesh over cuda:0: both return the global batch of 8
+    # 4x2 global mesh (2x2 a process, virtual over cuda:0): both return the
+    # global batch of 8
     d = os.path.join(tmp, "distributed")
     os.makedirs(d)
     np.save(os.path.join(d, "anchor.npy"), anchor[:8])
@@ -1053,7 +1075,8 @@ def mesh_path(cli_run, tmp: str, card: str, zero_counts, counts, models, fws, ma
         with open(os.path.join(d, f"rank{r}.json")) as fp:
             rec = json.load(fp)
         psnr = float.fromhex(rec["psnr"])
-        print(f"DistributedRunner rank {r} of 2 (gloo, 2x2 over cuda:0, {rec['frames']} frames): "
+        print(f"DistributedRunner rank {r} of 2 (gloo, 4x2 global mesh, 2x2 a rank over "
+              f"cuda:0, {rec['frames']} frames): "
               f"returned {got.shape}, == phase 4's unsharded: {bool((got == recon[:8]).all())}; "
               f"fused launches={rec['launches']}; psnr {psnr!r} == host {host_psnr!r}: "
               f"{psnr == host_psnr}")
@@ -1353,7 +1376,8 @@ def wide_path(card: str, anchor_1080p, recon_1080p, p37) -> None:
     model) at tp 2, 4, 8 on phase 4's anchors bit-equal to phase 4's
     generation-3 recon, each timed in turns against tp 1 (and QVRCNN
     against generation 3). Each path's GEMM count is zeroed before it and
-    read after; one JSON line {"library_routes": [...]} sums them up."""
+    read after; one JSON line {"library_routes": [...]} sums them up.
+    Returns (a)'s restored first frame."""
     import numpy as np
     import torch
 
@@ -1497,6 +1521,7 @@ def wide_path(card: str, anchor_1080p, recon_1080p, p37) -> None:
          "ms_per_frame": {str(k): v / 4 for k, v in tq.items()}},
     ]}))
     print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return got[:1].cpu().numpy()  # (a)'s first frame: phase 19 (b)'s reference
 
 
 def sharded_training(card: str) -> None:
@@ -1714,6 +1739,302 @@ def tuned_path(cli, card: str, zero_counts, wrappers, models, fws, cases, max_er
           f"H2D/D2H {card}")
     print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
     return launched
+
+
+# phase 19 (a), (b): one rank of DistributedRunner and the TP forwards over
+# global meshes whose axes span the 2 ranks, every position on cuda:0;
+# argv: repo, rank, port, work dir
+SPAN_WORKER = textwrap.dedent("""
+    import json, sys, time
+    sys.path.insert(0, sys.argv[1])
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from qcnn_gpu_tpu_torch.engine.runner import read_model
+    from qcnn_gpu_tpu_torch.models.wide import synth_wide_params
+    from qcnn_gpu_tpu_torch.ops.fused import fused_forward
+    from qcnn_gpu_tpu_torch.ops.int8_conv import conv_int8
+    from qcnn_gpu_tpu_torch.parallel.distributed import DistributedRunner, initialize
+    from qcnn_gpu_tpu_torch.parallel.mesh import make_global_mesh, make_mesh
+    from qcnn_gpu_tpu_torch.parallel.spatial import make_sharded_forward
+    from qcnn_gpu_tpu_torch.parallel.tensor import make_tp_int8_forward, make_tp_wide_forward
+
+    here, rank, port, d = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+    initialize(f"tcp://127.0.0.1:{port}", 2, rank)
+    dev = torch.device("cuda", 0)
+    p37 = read_model(f"{here}/assets/golden/model_q37.data")
+    anchor, recon = np.load(f"{d}/anchor.npy"), np.load(f"{d}/recon.npy")
+    rec = {"meshes": {}}
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    for label in ("1x2", "1x4", "1x2x2", "1x1x2"):
+        dims = [int(v) for v in label.split("x")] + [1]
+        dp, sp, sw = dims[:3]
+        mesh = make_global_mesh(dp, sp, [dev] * (dp * sp * sw // 2), sw=sw)
+        runner = DistributedRunner(p37, mesh, impl="auto")
+        x = anchor[mesh.local_slice(rank, anchor.shape)]
+        runner.restore(x)  # warm-up
+        fused_forward.launches = 0
+        runner.run.halo_bytes.update(sent=0, received=0)
+        got = runner.restore(x)
+        launches, halo = fused_forward.launches, dict(runner.run.halo_bytes)
+        one = make_sharded_forward(p37, make_mesh(dp, sp, devices=[dev] * (dp * sp * sw), sw=sw))
+        if rank == 0:
+            one(torch.from_numpy(anchor).to(dev))
+        turns = {"x": [], "one": [], "forward": []}
+        for turn in ("x", "one", "one", "x"):
+            dist.barrier()  # one process at a time on the card
+            for _ in range(3):
+                if turn == "x":
+                    turns["x"].append(clock(lambda: runner.restore(x))[1])
+                    xd = torch.from_numpy(x).to(dev)
+                    turns["forward"].append(clock(lambda: runner.run(xd))[1])
+                    dist.barrier()
+                elif rank == 0:
+                    turns["one"].append(clock(
+                        lambda: one(torch.from_numpy(anchor).to(dev)).cpu().numpy())[1])
+            dist.barrier()
+        rec["meshes"][label] = {
+            "equal": bool((got == recon).all()), "shape": list(got.shape),
+            "local": list(x.shape), "positions": int((mesh.ranks == rank).sum()),
+            "launches": launches, "halo": halo, "impl": runner.run.impl,
+            "ranks": mesh.ranks.tolist(), "ms": turns,
+        }
+
+    # (b) TP across the 2 ranks: QVRCNN at tp 2, the wide net c256 b10 at tp 2
+    mesh = make_global_mesh(1, 2, [dev])
+    xt = torch.from_numpy(np.load(f"{d}/tp_x.npy")).to(dev)
+    run = make_tp_int8_forward(p37, mesh)
+    run(xt)
+    conv_int8.launches = 0
+    out, ms = clock(lambda: run(xt).cpu().numpy())
+    rec["tp_int8"] = {"equal": bool((out == np.load(f"{d}/tp_want.npy")).all()),
+                      "launches": conv_int8.launches, "ms": ms, "impl": run.impl}
+    xw = torch.from_numpy(np.load(f"{d}/wide_x.npy")).to(dev)
+    wide = make_tp_wide_forward(synth_wide_params(256, 10, seed=7), mesh)
+    conv_int8.launches = 0
+    out, ms = clock(lambda: wide(xw).cpu().numpy())
+    rec["tp_wide"] = {"equal": bool((out == np.load(f"{d}/wide_want.npy")).all()),
+                      "launches": conv_int8.launches, "ms": ms, "impl": wide.impl}
+    with open(f"{d}/rank{rank}.json", "w") as fp:
+        json.dump(rec, fp)
+    dist.destroy_process_group()
+""")
+
+
+def span_path(card: str, anchor_1080p, recon_1080p, p37, wide_one) -> None:
+    """Phase 19: (a) DistributedRunner in 2 gloo processes on cuda:0 over
+    global meshes 1x2, 1x4, 1x2x2 and 1x1x2 (sp, sw across the ranks),
+    QP37 at 1920x1080 batch 4, each rank passing its slice of phase 4's
+    anchors: both ranks return the global batch equal to phase 4's recon,
+    generation 3 launched once per position a rank owns, the halo bytes
+    each rank sends and receives, and the ms per call (host clock) in
+    turns against the same mesh in one process; (b) the TP forwards
+    across the 2 ranks: QVRCNN at tp 2 on 2 frames of 832x480 against
+    generation 3, the wide net c256 b10 at tp 2 on phase 16's first frame
+    against phase 16's one-process result; (c) `restore_tiled` over
+    `Engine.restore` (540x960 tiles, 4 windows a call) at 3840x2160
+    through generation 3 (2 frames) and the reference net (1): tiled equal
+    to whole, the launches counted, each one's peak device memory and
+    ms/frame; (d) the native Y reader (and writer) against NumPy on phase
+    4's 16 frames of 1080p: equal, both times in turns, alone and in
+    run_sequence's wall time from files to files."""
+    import numpy as np
+    import torch
+
+    from qcnn_gpu_tpu_torch.data import yuv as Y
+    from qcnn_gpu_tpu_torch.engine.runner import Engine
+    from qcnn_gpu_tpu_torch.engine.tiled import restore_tiled
+    from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, fused_forward
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as d:
+        # (a), (b): the two ranks
+        np.save(os.path.join(d, "anchor.npy"), anchor_1080p[:4])
+        np.save(os.path.join(d, "recon.npy"), recon_1080p[:4])
+        tp_x = frames(2, 480, 832, seed=19)
+        np.save(os.path.join(d, "tp_x.npy"), tp_x)
+        np.save(os.path.join(d, "tp_want.npy"), fused_forward(
+            torch.from_numpy(tp_x).to(dev), FusedWeights.from_engine(p37, dev)).cpu().numpy())
+        np.save(os.path.join(d, "wide_x.npy"), frames(2, 480, 832, seed=16)[:1])
+        np.save(os.path.join(d, "wide_want.npy"), wide_one)
+        script = os.path.join(d, "worker.py")
+        with open(script, "w") as fp:
+            fp.write(SPAN_WORKER)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = str(sock.getsockname()[1])
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, script, HERE, str(r), port, d],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            logs = [pr.communicate(timeout=600)[0] for pr in procs]
+        finally:
+            for pr in procs:
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.wait()
+        if any(pr.returncode for pr in procs):
+            fail(f"phase 19 workers exited {[pr.returncode for pr in procs]}: {logs}")
+        recs = []
+        for r in range(2):
+            with open(os.path.join(d, f"rank{r}.json")) as fp:
+                recs.append(json.load(fp))
+    print(f"phase 19 (a)-(b): 2 processes, {time.perf_counter() - t0:.1f} s in all")
+    for label in recs[0]["meshes"]:
+        for r, rec in enumerate(recs):
+            m = rec["meshes"][label]
+            ms = {k: sum(v) / len(v) for k, v in m["ms"].items() if v}
+            print(f"DistributedRunner {label} across 2 ranks (ranks by position {m['ranks']}), "
+                  f"rank {r}: local slice {m['local']}, returned {m['shape']}, == phase 4's "
+                  f"recon: {m['equal']}; fused launches={m['launches']} ({m['positions']} "
+                  f"positions x 1 call); halo bytes sent {m['halo']['sent']}, received "
+                  f"{m['halo']['received']}; ms per call in turns (host clock, x one one x, "
+                  f"3 calls a turn): across processes {ms['x']:.3f} (its sharded forward alone "
+                  f"{ms['forward']:.3f}, the rest the shapes' and the frames' all-gathers)"
+                  + (f", the same mesh in one process {ms['one']:.3f} "
+                     f"({ms['x'] / ms['one']:.3f}x)" if "one" in ms else "") + f" {card}")
+            if not m["equal"] or m["shape"] != [4, H, W] or m["launches"] != m["positions"] \
+                    or m["impl"] != "kernel3" or m["halo"]["sent"] <= 0:
+                fail(f"DistributedRunner {label} rank {r}: {m}")
+    for key, what in (("tp_int8", "make_tp_int8_forward QP37 tp 2, 2x480x832, vs generation 3"),
+                      ("tp_wide", "make_tp_wide_forward c256 b10 tp 2, 1x480x832, vs phase 16 (a)")):
+        for r, rec in enumerate(recs):
+            t = rec[key]
+            print(f"{what} across 2 ranks, rank {r} ({t['impl']}): equal {t['equal']}; "
+                  f"_int_mm launches={t['launches']}; {t['ms']:.3f} ms for the call "
+                  f"(host clock, one call after {'a warm-up' if key == 'tp_int8' else 'none'}) "
+                  f"{card}")
+            if not t["equal"] or t["launches"] <= 0:
+                fail(f"{what} across ranks, rank {r}: {t}")
+
+    # (c) restore_tiled (540x960 tiles, 4 windows a call) over
+    # Engine.restore at 3840x2160 against whole frames
+    x2160 = frames(2, 2160, 3840, seed=20)
+    outs = {}
+    for impl, n in (("kernel3", 2), ("reference", 1)):
+        eng = Engine(device=dev, impl=impl, batch_frames=4)
+        eng.set_model(37, p37)
+        runs = {"whole": lambda: eng.restore(x2160[:n], 37),
+                "tiled": lambda: restore_tiled(lambda w: eng.restore(w, 37), x2160[:n],
+                                               540, 960, chunk=4)}
+        # generation 3: one launch a call of up to 4 frames or windows (16
+        # windows a frame); the reference net launches none
+        want = ({"whole": -(-n // 4), "tiled": -(-16 * n // 4)} if impl == "kernel3"
+                else {"whole": 0, "tiled": 0})
+        for how, run in runs.items():
+            run()  # warm-up: build, weights, allocator
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fused_forward.launches = 0
+            t0 = time.perf_counter()
+            outs[impl, how] = run()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / n
+            peak = torch.cuda.max_memory_allocated() - base
+            launches = fused_forward.launches
+            print(f"Engine(impl={impl}).restore {how} {n}x2160x3840: {ms:.3f} ms/frame (host "
+                  f"clock, copies included), peak device memory above the {base} B held "
+                  f"before: {peak} B ({peak / 2**20:.1f} MiB); fused launches={launches} "
+                  f"(expected {want[how]}) {card}")
+            if launches != want[how]:
+                fail(f"Engine(impl={impl}).restore {how} at 2160p: {launches} fused launches, "
+                     f"expected {want[how]}")
+        equal = bool((outs[impl, "whole"] == outs[impl, "tiled"]).all())
+        print(f"Engine(impl={impl}) 2160p: tiled at 540x960 == whole: {equal}")
+        if not equal:
+            fail(f"restore_tiled over Engine(impl={impl}) differs from the whole frame at 2160p")
+    if not (outs["kernel3", "whole"][:1] == outs["reference", "whole"]).all():
+        fail("generation 3 and the reference net differ at 2160p")
+
+    # (d) the native Y reader and writer against NumPy, 16 frames of 1080p:
+    # alone, and in the metric they move, run_sequence's wall time from
+    # files to files (cli run's work: two reads, warm-up, stream, PSNR,
+    # write)
+    with tempfile.TemporaryDirectory() as d:
+        files = {k: os.path.join(d, f"{k}.yuv") for k in ("native", "numpy")}
+        Y.write_y_as_420(files["native"], anchor_1080p)
+        Y.write_y_as_420_numpy(files["numpy"], anchor_1080p)
+        with open(files["native"], "rb") as a, open(files["numpy"], "rb") as b:
+            same_bytes = a.read() == b.read()
+        reads = {"native": lambda: Y.read_y(files["native"], H, W, len(anchor_1080p)),
+                 "numpy": lambda: Y.read_y_numpy(files["native"], H, W, len(anchor_1080p))}
+        ms = {k: [] for k in reads}
+        got = {}
+        for k in ("native", "numpy", "numpy", "native"):
+            t0 = time.perf_counter()
+            got[k] = reads[k]()
+            ms[k].append(1e3 * (time.perf_counter() - t0))
+        equal = all((v == anchor_1080p).all() for v in got.values())
+        print(f"read_y 16x{H}x{W} (page cache): native {sum(ms['native']) / 2:.3f} ms, NumPy "
+              f"{sum(ms['numpy']) / 2:.3f} ms (host clock, in turns n np np n: "
+              f"{ms['native'][0]:.3f} {ms['numpy'][0]:.3f} {ms['numpy'][1]:.3f} "
+              f"{ms['native'][1]:.3f}); equal to the frames: {equal}; native writer's bytes == "
+              f"NumPy's: {same_bytes}")
+        if not (equal and same_bytes):
+            fail("the native Y reader or writer differs from NumPy")
+        # the writer alone, in turns n np np n
+        wms = {"native": [], "numpy": []}
+        for k in ("native", "numpy", "numpy", "native"):
+            write = Y.write_y_as_420 if k == "native" else Y.write_y_as_420_numpy
+            t0 = time.perf_counter()
+            write(files[k], anchor_1080p)
+            wms[k].append(1e3 * (time.perf_counter() - t0))
+        print(f"write_y_as_420 16x{H}x{W}: native {' '.join(f'{x:.3f}' for x in wms['native'])} "
+              f"ms, NumPy {' '.join(f'{x:.3f}' for x in wms['numpy'])} ms (host clock, in "
+              f"turns n np np n)")
+        # run_sequence with each IO: a warm-up, then 10 pairs, the side that
+        # runs first alternating; medians, quartiles and pairs won
+        eng = Engine(device=dev, impl="auto", batch_frames=4, out_dir=d)
+        eng.set_model(37, p37)
+        io = {"native": (Y.read_y, Y.write_y_as_420),
+              "numpy": (Y.read_y_numpy, Y.write_y_as_420_numpy)}
+        wall = {k: [] for k in io}
+        stream = {k: [] for k in io}
+        recons = {k: os.path.join(d, f"recon_{k}.yuv") for k in io}
+
+        def one(k: str) -> float:
+            Y.read_y, Y.write_y_as_420 = io[k]
+            t0 = time.perf_counter()
+            rec = eng.run_sequence("e2e", files["native"], files["native"], H, W, 37,
+                                   frames=len(anchor_1080p), recon_path=recons[k])
+            ms = 1e3 * (time.perf_counter() - t0)
+            stream[k].append(rec.time_us / 1e3)
+            return ms
+
+        try:
+            one("native")  # warm-up
+            stream["native"].clear()
+            for i in range(10):
+                for k in (("native", "numpy") if i % 2 == 0 else ("numpy", "native")):
+                    wall[k].append(one(k))
+        finally:
+            Y.read_y, Y.write_y_as_420 = io["native"]
+        with open(recons["native"], "rb") as a, open(recons["numpy"], "rb") as b:
+            same_recon = a.read() == b.read()
+        q = {k: np.percentile(v, [25, 50, 75]) for k, v in wall.items()}
+        won = sum(n < p for n, p in zip(wall["native"], wall["numpy"]))
+        print(f"run_sequence 16x{H}x{W} files to files (two reads, warm-up, stream, PSNR, "
+              f"write), wall ms, 10 pairs after a warm-up, first side alternating: native "
+              f"{' '.join(f'{x:.3f}' for x in wall['native'])}; NumPy IO "
+              f"{' '.join(f'{x:.3f}' for x in wall['numpy'])}; median native {q['native'][1]:.3f} "
+              f"(quartiles {q['native'][0]:.3f}-{q['native'][2]:.3f}), NumPy {q['numpy'][1]:.3f} "
+              f"({q['numpy'][0]:.3f}-{q['numpy'][2]:.3f}); native faster in {won} of 10 pairs; "
+              f"its timed stream (time_us) median native {np.median(stream['native']):.3f}, "
+              f"NumPy {np.median(stream['numpy']):.3f}; recon files equal: {same_recon} {card}")
+        if not same_recon:
+            fail("run_sequence's recon differs between the native and the NumPy IO")
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

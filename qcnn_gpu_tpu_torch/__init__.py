@@ -20,14 +20,19 @@ Layering (bottom -> top):
   csrc/            hand-written CUDA C++ kernels (sm_90a): generations 3, 2
                    and 1 on one design (`wgmma`, hopper_wgmma.cuh)
   ops/build.py     nvcc build of csrc/ into ctypes-loaded libraries
-  native/          the packed transports' host side in C++ (g++ at first use)
+  native/          the packed transports' host side and the bulk Y-plane
+                   reader and writer in C++ (g++ at first use)
   engine/          Engine (program cache, transports, metrics log);
                    stream.py: pipelined restore on pinned rings and CUDA
                    streams; packed.py: the packed and duplex wire
-                   transports
+                   transports; tiled.py: host tiling over any program,
+                   fixed-shape halo windows in bounded chunks
   parallel/        device meshes, halo-exchange sharding (generation 3 under
-                   frame bounds), DistributedRunner across processes and
-                   channel sharding (tensor.py)
+                   frame bounds) and channel sharding (tensor.py), over one
+                   process's devices or a mesh whose dp, sp, sw and TP axes
+                   span processes (halos, sums and the gather over gloo);
+                   DistributedRunner. Still one process only: restore_stream
+                   and training
   config.py        the JSON Config (engine, training, data settings)
   quant/           the quant tables and their fixed-point solver
   models/float_model.py  the float VRCNN (training side, full float32)

@@ -1,8 +1,12 @@
 """YUV 4:2:0 8-bit luma IO and PSNR — the port's own copy.
 
 Mirrors `qcnn_gpu_tpu/data/yuv.py` (`frame_size_420`, `read_y`,
-`write_y_as_420`, `psnr`, `psnr_per_frame`), the NumPy versions that
-define the semantics, with the same EOFError texts:
+`write_y_as_420`, `psnr`, `psnr_per_frame`), with the same EOFError
+texts. `read_y` and `write_y_as_420` go through the native library
+(`native/yuvio.cpp`, built at first use; without g++ they raise, there is
+no silent fallback), as the JAX `read_y` does when it can
+(yuv.py:29-43); `read_y_numpy` and `write_y_as_420_numpy` are the NumPy
+versions that define the semantics, which the tests hold them to:
 
 - a YUV420p frame is H*W luma bytes followed by H*W/2 chroma bytes; only
   the Y plane is read and the chroma is skipped;
@@ -13,9 +17,12 @@ define the semantics, with the same EOFError texts:
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import numpy as np
+
+from qcnn_gpu_tpu_torch import native
 
 
 def frame_size_420(height: int, width: int) -> int:
@@ -26,7 +33,21 @@ def read_y(
     path: str, height: int, width: int, frames: Optional[int] = None, start: int = 0
 ) -> np.ndarray:
     """Read Y planes of a YUV420p file -> uint8 [frames, H, W]; `start`
-    skips whole frames first, frames=None reads to EOF."""
+    skips whole frames first, frames=None reads every frame whose Y plane
+    is whole (`read_y_numpy`'s semantics, through `native.read_y`)."""
+    if frames is None:
+        fsz = frame_size_420(height, width)
+        rest = os.path.getsize(path) - start * fsz
+        frames = (rest - height * width) // fsz + 1 if rest >= height * width else 0
+    if frames == 0:
+        raise EOFError(f"{path}: empty")
+    return native.read_y(path, height, width, frames, start)
+
+
+def read_y_numpy(
+    path: str, height: int, width: int, frames: Optional[int] = None, start: int = 0
+) -> np.ndarray:
+    """`read_y` in NumPy: the semantics (yuv.py:45-67)."""
     fsz = frame_size_420(height, width)
     ysz = height * width
     out = []
@@ -51,7 +72,13 @@ def read_y(
 
 
 def write_y_as_420(path: str, y: np.ndarray) -> None:
-    """Write uint8 [frames, H, W] luma with a zero UV plane per frame."""
+    """Write uint8 [frames, H, W] luma with a zero UV plane per frame
+    (`write_y_as_420_numpy`'s bytes, through `native.write_y_as_420`)."""
+    native.write_y_as_420(path, y)
+
+
+def write_y_as_420_numpy(path: str, y: np.ndarray) -> None:
+    """`write_y_as_420` in NumPy: the semantics (yuv.py:70-77)."""
     frames, h, w = y.shape
     uv = np.zeros(h * w // 2, dtype=np.uint8)
     with open(path, "wb") as fp:

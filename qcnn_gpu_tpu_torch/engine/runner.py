@@ -45,10 +45,13 @@ Two departures from the JAX engine, on purpose. The device is explicit
 and nothing changes it: a CUDA device without CUDA raises, a failed
 kernel build or launch raises, and a failure of the duplex path raises
 (the JAX engine falls back to raw, runner.py:279-288) after evicting the
-transport, whose carries may be out of step. And there is no host
-tiling: the JAX engine tiles when a whole-frame program fails
-(runner.py:205-219; some toolchains reject XLA graphs above 1080p),
-while the port compiles no graph and launches a 2160p batch whole.
+transport, whose carries may be out of step. And the engine does no host
+tiling: the JAX engine tiles a geometry after its whole-frame XLA program
+fails to compile (runner.py:205-219; some toolchains reject graphs above
+1080p), while the port compiles no graph and launches a 2160p batch
+whole (generation 3 holds little beyond the batch's uint8 input and
+output on the device). `engine/tiled.restore_tiled` tiles over any
+program, e.g. `lambda w: engine.restore(w, qp)`.
 
 Timing follows the reference's definition: wall clock around the whole
 frame loop including host->device and device->host copies
@@ -148,12 +151,17 @@ class Engine:
         mesh: Optional[Mesh] = None,
     ):
         """device: a torch device (default "cuda"); with a mesh, its first
-        device, and a `device` that names another raises ValueError."""
+        device, and a `device` that names another raises ValueError. A mesh
+        of one process only (one that spans processes serves through
+        `DistributedRunner.restore`)."""
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         if batch_frames < 1:
             raise ValueError(f"batch_frames must be >= 1, got {batch_frames}")
         if mesh is not None:
+            if mesh.world > 1:
+                raise ValueError(f"mesh {mesh!r} spans processes: serve it with "
+                                 "parallel/distributed.DistributedRunner.restore")
             d = torch.device(mesh.first if device is None else device)
             if d.type != mesh.first.type or d.index not in (None, mesh.first.index):
                 raise ValueError(f"device {d} is not the first device of mesh {mesh!r}")

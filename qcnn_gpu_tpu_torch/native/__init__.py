@@ -1,15 +1,19 @@
-"""The C++ host side of the packed wire transports, built at first use.
+"""The C++ host side, built at first use: the packed wire transports and
+the bulk Y-plane reader.
 
-The port's own copy of the transport half of `qcnn_gpu_tpu/native/`:
-`transport.cpp` here is its `transport.cpp`, and `duplex_pack`,
-`residual_decode`, `duplex_predict` and `duplex_decode8` mirror its
-bindings (`qcnn_gpu_tpu/native/__init__.py:126-224`). `lib()` compiles
-`transport.cpp` with `g++ -O3 -shared -fPIC` into
-`qcnn_gpu_tpu_torch/build/libtransport-<hash>.so` (the hash covers the
-source and the flags, so an edited source rebuilds) and loads it with
-ctypes. The JAX package falls back to NumPy without a compiler; the port
-raises, as `ops/build.py` does without nvcc. The NumPy functions in
-`engine/packed.py` define the semantics the tests hold these to.
+The port's own copy of `qcnn_gpu_tpu/native/`: `transport.cpp` here is
+its `transport.cpp`, and `duplex_pack`, `residual_decode`,
+`duplex_predict` and `duplex_decode8` mirror its bindings
+(`qcnn_gpu_tpu/native/__init__.py:126-224`); `yuvio.cpp` is the reader and
+writer of its `yuvio.cpp`, and `read_y` and `write_y_as_420` mirror their
+bindings (:101-124). Each source is compiled with `g++ -O3 -shared -fPIC`
+into `qcnn_gpu_tpu_torch/build/lib<name>-<hash>.so` (the hash covers the
+source and the flags, so an edited source rebuilds; a temporary file
+then `os.replace`, so a concurrent process never loads a partial file)
+and loaded with ctypes. The JAX package falls back to NumPy without a
+compiler; the port raises, as `ops/build.py` does without nvcc. The NumPy
+functions in `engine/packed.py` and `data/yuv.py` define the semantics
+the tests hold these to.
 """
 
 from __future__ import annotations
@@ -24,53 +28,75 @@ import threading
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-SRC = os.path.join(_DIR, "transport.cpp")
 BUILD = os.path.join(os.path.dirname(_DIR), "build")
 FLAGS = ("-O3", "-shared", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_longlong
+# library -> {function: (argtypes, restype)}
 _SIGNATURES = {
-    "duplex_classify": [_P, _P, _I, _P, _P],
-    "duplex_fill": [_P, _P, _I] + [_P] * 7,
-    "residual_decode": [_P, _P, _I, _I, _P, _P, _I, _P],
-    "duplex_predict_tiles": [_P, _P, _I, _I, _I, _P],
-    "duplex_predict_blocks": [_P, _I, _I, _I, _P],
-    "duplex_decode8": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P],
+    "transport": {
+        "duplex_classify": ([_P, _P, _I, _P, _P], None),
+        "duplex_fill": ([_P, _P, _I] + [_P] * 7, None),
+        "residual_decode": ([_P, _P, _I, _I, _P, _P, _I, _P], None),
+        "duplex_predict_tiles": ([_P, _P, _I, _I, _I, _P], None),
+        "duplex_predict_blocks": ([_P, _I, _I, _I, _P], None),
+        "duplex_decode8": ([_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P], None),
+    },
+    "yuvio": {
+        "read_y_planes": ([ctypes.c_char_p, _I, _I, _I, _I, _P], _I),
+        "write_y_as_420": ([ctypes.c_char_p, _P, _I, _I, _I], ctypes.c_int),
+    },
 }
-_lib = None
+_lib = None  # the transport library, once loaded
+_yuvio = None  # the Y-plane IO library, once loaded
 _lock = threading.Lock()
 
 
+def _load(name: str) -> ctypes.CDLL:
+    """Compile `<name>.cpp` unless its library is built, and load it;
+    raises without g++ or when g++ fails."""
+    src = os.path.join(_DIR, f"{name}.cpp")
+    with open(src, "rb") as fp:
+        digest = hashlib.sha256(" ".join(FLAGS).encode() + fp.read()).hexdigest()[:16]
+    so = os.path.join(BUILD, f"lib{name}-{digest}.so")
+    if not os.path.exists(so):
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(f"g++ not found on $PATH: the {name} library cannot be built")
+        os.makedirs(BUILD, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        proc = subprocess.run([gxx, *FLAGS, src, "-o", tmp], capture_output=True, text=True)
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise RuntimeError(f"g++ failed on {src} (rc={proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)  # atomic: a concurrent process never loads a partial file
+    h = ctypes.CDLL(so)
+    for fn_name, (argtypes, restype) in _SIGNATURES[name].items():
+        fn = getattr(h, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return h
+
+
 def lib() -> ctypes.CDLL:
-    """Compile (if needed) and load transport.cpp; raises without g++."""
+    """The transport library (transport.cpp), built at first use."""
     global _lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        with open(SRC, "rb") as fp:
-            digest = hashlib.sha256(" ".join(FLAGS).encode() + fp.read()).hexdigest()[:16]
-        so = os.path.join(BUILD, f"libtransport-{digest}.so")
-        if not os.path.exists(so):
-            gxx = shutil.which("g++")
-            if gxx is None:
-                raise RuntimeError("g++ not found on $PATH: the transport library cannot be built")
-            os.makedirs(BUILD, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            proc = subprocess.run([gxx, *FLAGS, SRC, "-o", tmp], capture_output=True, text=True)
-            if proc.returncode != 0:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-                raise RuntimeError(f"g++ failed on {SRC} (rc={proc.returncode}):\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, so)  # atomic: a concurrent process never loads a partial file
-        h = ctypes.CDLL(so)
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(h, name)
-            fn.argtypes = argtypes
-            fn.restype = None
-        _lib = h
+        if _lib is None:
+            _lib = _load("transport")
         return _lib
+
+
+def yuvio() -> ctypes.CDLL:
+    """The Y-plane IO library (yuvio.cpp), built at first use."""
+    global _yuvio
+    with _lock:
+        if _yuvio is None:
+            _yuvio = _load("yuvio")
+        return _yuvio
 
 
 def _ptr(a: np.ndarray):
@@ -181,3 +207,28 @@ def duplex_decode8(x: np.ndarray, rows: np.ndarray, bidx: np.ndarray,
         _ptr(prevc), _ptr(rec), _ptr(res_last), _ptr(scratch),
     )
     return rec, res_last.reshape(1, hh, w)
+
+
+def read_y(path: str, height: int, width: int, frames: int, start: int = 0) -> np.ndarray:
+    """`frames` Y planes of a YUV420p file from frame `start` -> uint8
+    [frames, H, W] (`yuvio.cpp` read_y_planes). Raises FileNotFoundError
+    when the file does not open, EOFError (data/yuv.read_y_numpy's text)
+    when it holds fewer frames."""
+    out = np.empty((frames, height, width), dtype=np.uint8)
+    got = yuvio().read_y_planes(os.fsencode(path), height, width, start, frames, _ptr(out))
+    if got < 0:
+        raise FileNotFoundError(path)
+    if got < frames:
+        raise EOFError(f"{path}: wanted {frames} frames, got {got} ({height}x{width})")
+    return out
+
+
+def write_y_as_420(path: str, y: np.ndarray) -> None:
+    """uint8 [frames, H, W] -> a YUV420p file, a zero UV plane after each
+    Y plane (`yuvio.cpp` write_y_as_420). Raises OSError when the write
+    fails."""
+    y = np.ascontiguousarray(y, dtype=np.uint8)
+    if y.ndim != 3:
+        raise ValueError(f"expected uint8 frames [N, H, W], got shape {y.shape}")
+    if yuvio().write_y_as_420(os.fsencode(path), _ptr(y), *y.shape) != 0:
+        raise OSError(f"write failed: {path}")

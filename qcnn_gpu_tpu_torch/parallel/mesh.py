@@ -13,14 +13,27 @@ which every shard runs in turn on that device (the counterpart of the
 JAX tests' 8-device virtual CPU mesh). `make_mesh` spreads a mesh over
 the visible CUDA devices unless given devices, and never falls back to
 the CPU.
+
+Every position also has the rank that owns it (`mesh.ranks`), and the
+mesh knows which rank it was built on (`mesh.rank`) of how many
+(`mesh.world`). `make_mesh` builds a one-process mesh: every position on
+rank 0, world 1. `make_global_mesh` builds the mesh over every rank's
+local devices, process-major as the JAX `make_mesh` lays out
+`jax.devices()` (mesh.py:60-76): position k of the flattened grid is
+local device k % L of rank k // L. A rank owns a rectangle of the grid
+(`owned`) and so the matching slice of a global [N, H, W] batch
+(`local_slice`): its frames along dp, its rows along sp and its columns
+along sw, the process-local data of the JAX runner's
+`make_array_from_process_local_data` (distributed.py:67-75).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _normalized(d) -> torch.device:
@@ -34,15 +47,27 @@ def _normalized(d) -> torch.device:
 
 class Mesh:
     """An array of torch devices (dp, sp) or (dp, sp, sw), axis names
-    ("dp", "sp") or ("dp", "sp", "sw")."""
+    ("dp", "sp") or ("dp", "sp", "sw"), with the rank that owns each
+    position (`ranks`, default all 0), the rank this object was built on
+    (`rank`), the number of ranks (`world`) and their process group
+    (`group`, None: the default group). Where another rank owns a
+    position, its device is that rank's."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Tuple[str, ...]):
+    def __init__(self, devices: np.ndarray, axis_names: Tuple[str, ...],
+                 ranks: Optional[np.ndarray] = None, rank: int = 0, world: int = 1,
+                 group=None):
         if devices.ndim != len(axis_names):
             raise ValueError(f"{devices.ndim}-D device array for axes {axis_names}")
         self.devices = np.empty(devices.shape, dtype=object)
         for idx in np.ndindex(devices.shape):
             self.devices[idx] = _normalized(devices[idx])
         self.axis_names = tuple(axis_names)
+        self.ranks = (np.zeros(devices.shape, np.int64) if ranks is None
+                      else np.asarray(ranks, np.int64).reshape(devices.shape))
+        if not 0 <= rank < world or self.ranks.min() < 0 or self.ranks.max() >= world:
+            raise ValueError(f"ranks {sorted(set(self.ranks.flat))} and rank {rank} "
+                             f"outside a world of {world}")
+        self.rank, self.world, self.group = rank, world, group
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -50,8 +75,41 @@ class Mesh:
 
     @property
     def first(self) -> torch.device:
-        """The device that takes a sharded program's input and output."""
-        return self.devices.flat[0]
+        """The device that takes a sharded program's input and output: this
+        rank's first position's."""
+        return self.devices[tuple(s.start for s in self.owned())]
+
+    def owned(self, rank: Optional[int] = None) -> Tuple[slice, ...]:
+        """The sub-grid of positions that `rank` (default this mesh's rank)
+        owns, a slice per axis. Raises ValueError, naming the mesh's shape,
+        when the rank owns no position or its positions are no rectangle."""
+        rank = self.rank if rank is None else rank
+        where = np.argwhere(self.ranks == rank)
+        if where.size == 0:
+            raise ValueError(f"rank {rank} owns no position of mesh {self.label()}")
+        box = tuple(slice(int(lo), int(hi) + 1) for lo, hi in zip(where.min(0), where.max(0)))
+        if not (self.ranks[box] == rank).all():
+            raise ValueError(
+                f"rank {rank}'s positions of mesh {self.label()} ({', '.join(self.axis_names)}) "
+                f"are no rectangle of the grid: ranks by position {self.ranks.tolist()}")
+        return box
+
+    def local_slice(self, rank: Optional[int], shape: Sequence[int]) -> Tuple[slice, ...]:
+        """The slice of a global batch of `shape` ([N, H, W, ...]) that
+        `rank` (None: this mesh's rank) owns: its dp range of frames, its
+        sp range of rows and its sw range of columns. Raises ValueError
+        unless each split extent divides by its axis."""
+        grid = self.devices.shape
+        if any(s % g for s, g in zip(shape, grid)):
+            raise ValueError(f"batch {tuple(shape)} does not split over mesh {self.label()} "
+                             f"({', '.join(self.axis_names)})")
+        return tuple(slice(o.start * s // g, o.stop * s // g)
+                     for o, s, g in zip(self.owned(rank), shape, grid))
+
+    def local_devices(self) -> List[torch.device]:
+        """The distinct devices of this rank's positions, in grid order."""
+        own = self.devices[self.owned()]
+        return list(dict.fromkeys(own.flat))
 
     def label(self) -> str:
         """"DPxSP" or "DPxSPxSW" (`RunRecord.mesh`)."""
@@ -59,7 +117,8 @@ class Mesh:
 
     def __repr__(self) -> str:
         devices = sorted({str(d) for d in self.devices.flat})
-        return f"Mesh({self.label()}, {self.axis_names}, {devices})"
+        ranks = "" if self.world == 1 else f", rank {self.rank} of {self.world}"
+        return f"Mesh({self.label()}, {self.axis_names}, {devices}{ranks})"
 
 
 def mesh_shape_for(
@@ -128,6 +187,52 @@ def make_mesh(
     if sw == 1:
         return Mesh(arr.reshape(dp, sp), ("dp", "sp"))
     return Mesh(arr.reshape(dp, sp, sw), ("dp", "sp", "sw"))
+
+
+def make_global_mesh(
+    dp: int,
+    sp: int = 1,
+    local_devices: Optional[Sequence] = None,
+    sw: int = 1,
+    group=None,
+) -> Mesh:
+    """The (dp, sp[, sw]) mesh over every rank's `local_devices` (default:
+    the visible CUDA devices), process-major: the global device list is
+    rank 0's local devices, then rank 1's, ..., and the mesh takes its
+    first dp * sp * sw (the JAX `make_mesh` over `jax.devices()`). Every
+    rank of `group` (default: the default group; one process without an
+    initialized group) calls it: the ranks exchange their device lists,
+    and raise ValueError when the lists' lengths differ or there are too
+    few devices. Repeat a device for a virtual mesh."""
+    if min(dp, sp, sw) < 1:
+        raise ValueError(f"mesh {dp}x{sp}x{sw}: every axis needs >= 1 device")
+    if local_devices is None:
+        if not torch.cuda.is_available():
+            raise ValueError("make_global_mesh: no CUDA device and no local devices given")
+        local_devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    local = [str(_normalized(d)) for d in local_devices]
+    if dist.is_available() and dist.is_initialized():
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+    else:
+        world, rank = 1, 0
+    lists: List[List[str]] = [local]
+    if world > 1:
+        lists = [None] * world
+        dist.all_gather_object(lists, local, group=group)
+    if len({len(v) for v in lists}) > 1:
+        raise ValueError(f"make_global_mesh: the ranks hold {[len(v) for v in lists]} local "
+                         "devices (by rank); a process-major mesh needs the same count on each")
+    need = dp * sp * sw
+    flat = [(r, d) for r, v in enumerate(lists) for d in v]
+    if need > len(flat):
+        raise ValueError(f"mesh {dp}x{sp}x{sw} needs {need} devices, have {len(flat)} "
+                         f"({world} ranks of {len(local)})")
+    shape = (dp, sp) if sw == 1 else (dp, sp, sw)
+    devices = np.empty(need, dtype=object)
+    devices[:] = [torch.device(d) for _, d in flat[:need]]
+    ranks = np.array([r for r, _ in flat[:need]], np.int64)
+    return Mesh(devices.reshape(shape), ("dp", "sp", "sw")[:len(shape)], ranks.reshape(shape),
+                rank, world, group)
 
 
 def mesh_on(device, dp: int, sp: int = 1, sw: int = 1) -> Mesh:

@@ -25,6 +25,15 @@ current stream, and the copies between devices are `non_blocking`. On a
 virtual mesh (one device repeated) the blocks run one after the other on
 that device, and a neighbour's rows are a slice.
 
+A mesh may span ranks (`parallel/mesh.make_global_mesh`): each rank then
+holds its slice of the global batch, runs the blocks of the positions it
+owns, and trades the halo rows and columns of a neighbour on another
+rank over the mesh's gloo group as host tensors (uint8 for generation
+3, the x-128 integers for the reference net; the JAX ppermutes over
+DCN), rows first, so that the corners still come from the
+diagonal neighbour; the frame bounds come from each block's position in
+the global grid.
+
 Departures from the JAX package: a kernel that fails to build or launch
 raises (the JAX `make_sharded_forward` warns and demotes `auto` to the
 sharded XLA graph, spatial.py:121-133); and a mesh axis of extent 1 gets
@@ -34,7 +43,7 @@ no halo (`extended_blocks`), where the JAX program pads it with filler.
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -53,18 +62,64 @@ NO_BOUNDS = (
 )
 
 
-def _exchange(blocks: np.ndarray, dim: int, halo: int, fill: int) -> np.ndarray:
+def _exchange(blocks: np.ndarray, dim: int, halo: int, fill: int,
+              mesh: Optional[Mesh] = None, stats: Optional[dict] = None) -> np.ndarray:
     """Extend tensor dimension `dim` of every block with `halo` slices from
     its neighbours along grid axis `dim` (grid axes and tensor dimensions
-    line up: dp/N, sp/H, sw/W). A block at the grid's edge gets `fill`."""
+    line up: dp/N, sp/H, sw/W). A block at the grid's edge gets `fill`.
+
+    On a `mesh` that spans ranks, `blocks` holds this rank's blocks at
+    their grid positions (None elsewhere). A neighbour that another rank
+    owns sends its edge slice over the mesh's process group as a host
+    tensor, and this rank sends it its own: every send and receive is
+    posted at once (`batch_isend_irecv`) and then awaited, so no order of
+    the ranks can deadlock. The tag of a message is its receiving
+    position's flat index and side, unique however many positions a rank
+    owns. `stats` counts the bytes sent and received across ranks."""
     out = np.empty(blocks.shape, dtype=object)
     n = blocks.shape[dim]
+    ranks = np.zeros(blocks.shape, np.int64) if mesh is None else mesh.ranks
+    me = 0 if mesh is None else mesh.rank
+
+    def tag(idx, side):  # a message's tag: its receiving position and side
+        return int(np.ravel_multi_index(idx, blocks.shape)) * 2 + side
+
+    ops, sends, recvs = [], [], {}
     for idx in np.ndindex(blocks.shape):
+        if ranks[idx] != me:
+            continue
+        b = blocks[idx]
+        for side, step in enumerate((-1, 1)):
+            j = idx[dim] + step
+            nb = idx[:dim] + (j,) + idx[dim + 1:]
+            if not 0 <= j < n or ranks[nb] == me:
+                continue
+            # the neighbour's edge arrives on this side; this block's edge
+            # toward it leaves, for the neighbour's other side
+            shape = list(b.shape)
+            shape[dim] = halo
+            recvs[idx, side] = torch.empty(shape, dtype=b.dtype)
+            sends.append(b.narrow(dim, 0 if step < 0 else b.shape[dim] - halo, halo)
+                         .contiguous().cpu())
+            peer = int(ranks[nb])
+            ops.append(dist.P2POp(dist.irecv, recvs[idx, side], peer, mesh.group, tag(idx, side)))
+            ops.append(dist.P2POp(dist.isend, sends[-1], peer, mesh.group, tag(nb, 1 - side)))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        if stats is not None:
+            stats["sent"] = stats.get("sent", 0) + sum(t.nbytes for t in sends)
+            stats["received"] = stats.get("received", 0) + sum(t.nbytes for t in recvs.values())
+    for idx in np.ndindex(blocks.shape):
+        if ranks[idx] != me:
+            continue
         b = blocks[idx]
         parts = []
-        for step in (-1, 1):
+        for side, step in enumerate((-1, 1)):
             j = idx[dim] + step
-            if 0 <= j < n:
+            if (idx, side) in recvs:
+                parts.append(recvs[idx, side].to(b.device, non_blocking=True))
+            elif 0 <= j < n:
                 src = blocks[idx[:dim] + (j,) + idx[dim + 1:]]
                 start = src.shape[dim] - halo if step < 0 else 0
                 parts.append(src.narrow(dim, start, halo).to(b.device, non_blocking=True))
@@ -76,44 +131,58 @@ def _exchange(blocks: np.ndarray, dim: int, halo: int, fill: int) -> np.ndarray:
     return out
 
 
-def halo_exchange_rows(blocks: np.ndarray, halo: int, fill: int = 0) -> np.ndarray:
+def halo_exchange_rows(blocks: np.ndarray, halo: int, fill: int = 0,
+                       mesh: Optional[Mesh] = None, stats: Optional[dict] = None) -> np.ndarray:
     """A grid of blocks [N, H_local, ...] (an object array of tensors over
     the mesh, sp on its axis 1) -> each block extended with `halo` rows
     from each row neighbour; blocks at the frame's top or bottom get
-    `fill` rows there."""
-    return _exchange(blocks, 1, halo, fill)
+    `fill` rows there. On a `mesh` that spans ranks, this rank's blocks
+    (None elsewhere), the rows of other ranks' blocks exchanged over
+    its process group (`_exchange`)."""
+    return _exchange(blocks, 1, halo, fill, mesh, stats)
 
 
-def halo_exchange_cols(blocks: np.ndarray, halo: int, fill: int = 0) -> np.ndarray:
+def halo_exchange_cols(blocks: np.ndarray, halo: int, fill: int = 0,
+                       mesh: Optional[Mesh] = None, stats: Optional[dict] = None) -> np.ndarray:
     """As `halo_exchange_rows` over columns (sw, grid axis 2). Called on
     the row-extended blocks, the column neighbour's edge columns carry the
-    diagonal neighbour's corner pixels (spatial.py:69-76)."""
-    return _exchange(blocks, 2, halo, fill)
+    diagonal neighbour's corner pixels (spatial.py:69-76), across ranks
+    too."""
+    return _exchange(blocks, 2, halo, fill, mesh, stats)
 
 
 def split_blocks(x: torch.Tensor, mesh: Mesh) -> np.ndarray:
     """[N, H, W, ...] -> the grid of blocks over `mesh`, each on its device
     (a view where the device is x's). Raises ValueError unless N divides
-    by dp, H by sp and W by sw, as the JAX shard_map requires."""
+    by dp, H by sp and W by sw, as the JAX shard_map requires. On a mesh
+    that spans ranks, `x` is this rank's slice of the global batch
+    (`Mesh.local_slice`), split over the sub-grid it owns; the other
+    positions hold None."""
     grid = mesh.devices.shape
+    own = mesh.owned()
+    sub = tuple(o.stop - o.start for o in own)
     shape = tuple(x.shape[:len(grid)])
-    if any(s % g for s, g in zip(shape, grid)):
+    if any(s % g for s, g in zip(shape, sub)):
+        where = "" if mesh.world == 1 else f" (rank {mesh.rank}'s sub-grid {'x'.join(map(str, sub))})"
         raise ValueError(
-            f"frames {tuple(x.shape)} do not split over mesh {mesh.label()} "
+            f"frames {tuple(x.shape)} do not split over mesh {mesh.label()}{where} "
             f"({', '.join(mesh.axis_names)}): N, H{', W' if len(grid) > 2 else ''} must divide"
         )
-    step = [s // g for s, g in zip(shape, grid)]
-    blocks = np.empty(grid, dtype=object)
-    for idx in np.ndindex(grid):
+    step = [s // g for s, g in zip(shape, sub)]
+    blocks = np.full(grid, None, dtype=object)
+    for local in np.ndindex(sub):
         b = x
-        for d, i in enumerate(idx):
+        for d, i in enumerate(local):
             b = b.narrow(d, i * step[d], step[d])
+        idx = tuple(o.start + i for o, i in zip(own, local))
         blocks[idx] = b.to(mesh.devices[idx], non_blocking=True)
     return blocks
 
 
 def join_blocks(blocks: np.ndarray, device) -> torch.Tensor:
-    """The inverse of `split_blocks`: the grid put back together on `device`."""
+    """The inverse of `split_blocks`: the grid (on a mesh that spans ranks,
+    this rank's sub-grid: `blocks[mesh.owned()]`) put back together on
+    `device`."""
 
     def join(sub, dim):
         if sub.ndim == 1:
@@ -130,20 +199,26 @@ def _bounds(i: int, n: int, extent: int, halo: int):
     return (halo if i == 0 else 0), (extent - halo if i == n - 1 else extent)
 
 
-def extended_blocks(blocks: np.ndarray, halo: int, fill: int):
+def extended_blocks(blocks: np.ndarray, halo: int, fill: int,
+                    mesh: Optional[Mesh] = None, stats: Optional[dict] = None):
     """A grid of blocks (`split_blocks`; 2-D over a (dp, sp) mesh, 3-D over
     (dp, sp, sw)) -> (the halo-extended blocks, and each one's frame bounds
     (row_lo, row_hi, col_lo, col_hi)): rows exchanged, then columns on a
     3-D grid. An axis of extent 1 has no neighbour and is not extended:
     the JAX program pads it with filler that its bounds then mask, which
-    costs generation 3 a tile row (2.2% of a 1080p frame's tiles)."""
+    costs generation 3 a tile row (2.2% of a 1080p frame's tiles). On a
+    `mesh` that spans ranks, this rank's blocks, exchanged with the other
+    ranks' (`_exchange`; `stats` counts the bytes); the bounds come from
+    each block's position in the global grid."""
     rows = blocks.shape[1] > 1
     cols = blocks.ndim == 3 and blocks.shape[2] > 1
-    xe = halo_exchange_rows(blocks, halo, fill) if rows else blocks
+    xe = halo_exchange_rows(blocks, halo, fill, mesh, stats) if rows else blocks
     if cols:
-        xe = halo_exchange_cols(xe, halo, fill)
-    bounds = np.empty(blocks.shape, dtype=object)
+        xe = halo_exchange_cols(xe, halo, fill, mesh, stats)
+    bounds = np.full(blocks.shape, None, dtype=object)
     for idx in np.ndindex(blocks.shape):
+        if xe[idx] is None:
+            continue
         h, w = xe[idx].shape[1:3]
         bounds[idx] = ((_bounds(idx[1], blocks.shape[1], h, halo) if rows else (0, h))
                        + (_bounds(idx[2], blocks.shape[2], w, halo) if cols else (0, w)))
@@ -182,22 +257,29 @@ def make_sharded_forward(
     must divide by dp, H by sp and W by sw, and each block keep at least
     `halo` rows (and columns); otherwise ValueError.
 
+    On a mesh that spans ranks, every rank of it calls fn at once, each
+    on its slice of the global batch (`Mesh.local_slice`): fn runs this
+    rank's blocks, exchanges the halos with the other ranks over the
+    mesh's process group, and returns this rank's restored slice.
+
     impl: "kernel3" ("kernel", and "auto" on a table inside the saturation
     window) launches generation 3, `fused_forward`, once per block, with
-    the block's frame bounds: dp * sp * sw launches a call (on a CPU mesh,
-    its plain version). "reference" runs the float64-exact reference net
-    with validity masks. The others raise (`sharded_impl`). The weights
-    are placed once on each distinct device of the mesh. The callable
-    carries `.mesh` and `.impl`."""
+    the block's frame bounds: a launch per position the rank owns (dp *
+    sp * sw on one process) a call (on a CPU mesh, its plain version).
+    "reference" runs the float64-exact reference net with validity masks.
+    The others raise (`sharded_impl`). The weights are placed once on each
+    distinct device of this rank's positions. The callable carries
+    `.mesh`, `.impl` and `.halo_bytes` (bytes sent and received across
+    ranks, summed over its calls)."""
     chosen = sharded_impl(p, impl)
     grid = mesh.devices.shape
+    own = mesh.owned()
+    sub = tuple(o.stop - o.start for o in own)
     rows = grid[1] > 1
     cols = len(grid) == 3 and grid[2] > 1
     carrier = FusedWeights if chosen == "kernel3" else MergedParams
-    weights = {}
-    for d in mesh.devices.flat:
-        if d not in weights:
-            weights[d] = carrier.from_engine(p, d)
+    weights = {d: carrier.from_engine(p, d) for d in mesh.local_devices()}
+    stats = {"sent": 0, "received": 0}
 
     kept = (slice(None), slice(halo, -halo) if rows else slice(None),
             slice(halo, -halo) if cols else slice(None))
@@ -206,22 +288,26 @@ def make_sharded_forward(
         if x.dtype != torch.uint8 or x.dim() != 3:
             raise ValueError(f"expected uint8 frames [N, H, W], got {x.dtype} {tuple(x.shape)}")
         h, w = x.shape[1:]
-        if (rows and h // grid[1] < halo) or (cols and w // grid[2] < halo):
+        if (rows and h // sub[1] < halo) or (cols and w // sub[2] < halo):
             raise ValueError(f"frames {tuple(x.shape)} on mesh {mesh.label()}: each block "
                              f"needs >= {halo} rows (and columns) along a split axis")
         blocks = split_blocks(x, mesh)
-        out = np.empty(grid, dtype=object)
+        out = np.full(grid, None, dtype=object)
         if chosen == "kernel3":
-            xe, bounds = extended_blocks(blocks, halo, fill=128)
+            xe, bounds = extended_blocks(blocks, halo, 128, mesh, stats)
             for idx in np.ndindex(grid):
-                out[idx] = fused_forward(xe[idx], weights[xe[idx].device], *bounds[idx])[kept]
+                if xe[idx] is not None:
+                    out[idx] = fused_forward(xe[idx], weights[xe[idx].device], *bounds[idx])[kept]
         else:
-            ppro = np.empty(grid, dtype=object)
+            ppro = np.full(grid, None, dtype=object)
             for idx in np.ndindex(grid):
-                ppro[idx] = blocks[idx][..., None].to(torch.int64) - 128
-            xe, bounds = extended_blocks(ppro, halo, fill=0)
+                if blocks[idx] is not None:
+                    ppro[idx] = blocks[idx][..., None].to(torch.int64) - 128
+            xe, bounds = extended_blocks(ppro, halo, 0, mesh, stats)
             for idx in np.ndindex(grid):
                 e = xe[idx]
+                if e is None:
+                    continue
                 row_lo, row_hi, col_lo, col_hi = bounds[idx]
                 r = torch.arange(e.shape[1], device=e.device)
                 c = torch.arange(e.shape[2], device=e.device)
@@ -231,10 +317,11 @@ def make_sharded_forward(
                     col_valid=(c >= col_lo) & (c < col_hi),
                 )
                 out[idx] = apply_residual_u8(blocks[idx], res[kept])
-        return join_blocks(out, mesh.first)
+        return join_blocks(out[own], mesh.first)
 
     run.mesh = mesh
     run.impl = chosen
+    run.halo_bytes = stats
     return run
 
 
@@ -252,7 +339,8 @@ def psnr_sharded(a, ref, mesh: Mesh, group=None) -> float:
     process group of more than one process is initialized, the SSE and the
     pixel count are all-reduced over `group` (default: the default group;
     host tensors, so a gloo group), and `a`, `ref` are this process's
-    frames: the result is the PSNR of every process's frames together.
+    frames (on a mesh that spans ranks, its slice of the global batch):
+    the result is the PSNR of every process's frames together.
 
     Squared differences are integers <= 65025, so every float64 partial
     sum is exact below 2**53 and the result equals the host PSNR
@@ -263,6 +351,8 @@ def psnr_sharded(a, ref, mesh: Mesh, group=None) -> float:
         raise ValueError(f"shapes differ: {tuple(ta.shape)} and {tuple(tr.shape)}")
     sse = 0.0
     for ba, br in zip(split_blocks(ta, mesh).flat, split_blocks(tr, mesh).flat):
+        if ba is None:  # another rank's block
+            continue
         d = ba.to(torch.float64) - br.to(torch.float64)
         sse += float((d * d).sum())
     total = torch.tensor([sse, float(ta.numel())], dtype=torch.float64)

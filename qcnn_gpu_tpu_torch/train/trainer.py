@@ -18,12 +18,12 @@ Each shard takes its local loss and `torch.autograd.grad` of it (the
 halo carries data, not parameters), and the losses and gradients are
 summed over the mesh in shard order on its first device, which is the
 JAX psum of local gradients. The shards run in turn from the caller's
-thread, one device each (a virtual mesh repeats one device). A `Mesh`
-holds one process's devices, so the sums cover this process's patches
-only, whatever process group exists; to train dp across processes the
-caller passes a gloo `group`, each process its own patches, and the sums
-are all-reduced over it, as `parallel/distributed.DistributedRunner`
-gathers; sp stays in a process. With sp = 1 no halo is exchanged (as
+thread, one device each (a virtual mesh repeats one device). The mesh
+is one process's (`make_mesh`; a mesh that spans processes raises
+NotImplementedError), so the sums cover this process's patches only,
+whatever process group exists; to train dp across processes the caller
+passes a gloo `group`, each process its own patches, and the sums are
+all-reduced over it; sp stays in a process. With sp = 1 no halo is exchanged (as
 `parallel/spatial` extends no unsplit axis): a block's loss is
 `float_model.l2_loss`, so the 1x1 mesh's gradients are its backward.
 
@@ -138,6 +138,10 @@ def make_grad_fn(mesh: Mesh, blu_ub: Optional[Sequence[float]] = None,
     the sums cover every process's. No group, no all-reduce."""
     if mesh.devices.ndim != 2:
         raise ValueError(f"make_grad_fn takes a (dp, sp) mesh, got {mesh.label()}")
+    if mesh.world > 1:
+        raise NotImplementedError(
+            f"make_grad_fn: mesh {mesh!r} spans processes, and the differentiable halo "
+            "crosses no process; give each process its own mesh and a `group`")
     sp = mesh.shape["sp"]
 
     def shard_loss(params, x, y, ext, j):

@@ -36,7 +36,7 @@ WORKER = textwrap.dedent(
     import numpy as np
     import torch
     from qcnn_gpu_tpu_torch.parallel.distributed import DistributedRunner, initialize
-    from qcnn_gpu_tpu_torch.parallel.mesh import make_mesh
+    from qcnn_gpu_tpu_torch.parallel.mesh import make_global_mesh
     from qcnn_gpu_tpu_torch.testing import synth_engine_params, synth_frames
 
     rank, world, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
@@ -44,7 +44,7 @@ WORKER = textwrap.dedent(
     torch.set_num_threads(2)
     initialize(f"tcp://127.0.0.1:{{port}}", world, rank)
     runner = DistributedRunner(synth_engine_params(37),
-                               make_mesh(2, 1, devices=[torch.device("cpu")] * 2), impl="auto")
+                               make_global_mesh(4, 1, [torch.device("cpu")] * 2), impl="auto")
     frames = synth_frames(total, 32, 48, seed=5)
     ori = synth_frames(total, 32, 48, seed=6)
     local = np.array_split(frames, world)[rank]
@@ -99,9 +99,9 @@ def _two_ranks(tmp_path, total):
 
 
 def test_two_process_restore_returns_the_global_batch(tmp_path):
-    """Two processes, 4 frames each on a 2x1 virtual CPU mesh, gloo: both
-    return the 8-frame global batch, equal to the unsharded restore and to
-    the JAX DistributedRunner's; psnr (an all-reduce of per-block SSE)
+    """Two processes, 4 frames each on a 4x1 mesh over both (2 virtual CPU
+    devices a process), gloo: both return the 8-frame global batch, equal
+    to the unsharded restore and to the JAX DistributedRunner's; psnr (an all-reduce of per-block SSE)
     equals the host PSNR of the global batch; restore_stream refuses."""
     outs = _two_ranks(tmp_path, 8)
     p = synth_engine_params(37)
@@ -179,15 +179,6 @@ def test_duplex_failure_raises_and_evicts_the_transport(monkeypatch):
     monkeypatch.setattr(P.DuplexTransport, "receive", orig)
     got = runner.restore_stream(frames, transport="duplex", batch_frames=4)
     assert (got == make_forward(p, device="cpu")(torch.from_numpy(frames)).numpy()).all()
-
-
-def test_global_mesh_refuses_an_sp_axis_across_processes(monkeypatch):
-    """Two processes of one device each, one frame: mesh_shape_for gives
-    1x2, whose sp axis would span the processes."""
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    monkeypatch.setattr(D, "world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="sp axis would span processes"):
-        D.global_mesh(frames_hint=1)
 
 
 def test_global_mesh_needs_cuda(monkeypatch):
