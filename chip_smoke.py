@@ -155,13 +155,28 @@ nvcc each, all at once) and then:
        under the reference net), peak device memory and ms/frame of each;
        (d) the native reader and writer (`native/yuvio.cpp`) against NumPy
        on phase 4's 16 frames: equal, both times, and `run_sequence`'s
-       wall time from files to files with each.
+       wall time from files to files with each;
+  20   (dp, sp) training over meshes whose axes span processes: 2 gloo
+       processes on cuda:0, global meshes 2x1, 1x2, 1x4 and 2x2 on phase
+       17's data, every rank passing the whole batch: (a) `make_grad_fn`
+       against the one-process 1x1 step (loss rel 1e-5, every gradient
+       within 1e-5 of its max |g|), the ranks bit-equal, the bytes across
+       ranks exact (halo 98,304 a rank at 1x2 and 1x4, 0 at 2x1 and 2x2;
+       all-reduce 218,696); (b) ms per step across the processes against
+       the same mesh in one, in turns; (c) 20 Adam steps of
+       `Trainer(mesh=global 1x2)`: the loss falls, the ranks' params
+       bit-equal and close to a one-process 1x2 Trainer's, the checkpoint
+       written by rank 0 alone; (d) `quant_finetune` on that mesh (the
+       weights on the grid, equal on both ranks), its model written by rank
+       0 and served by `DistributedRunner` over the global 1x2 mesh on
+       phase 4's anchors: generation 3 launched once a rank, bit-equal to a
+       one-process `Engine.restore` of the file.
 
 The committed 1080p and class-A golden PSNRs need matplotlib's sample
 data, which the smoke does not assume: `tests/test_torch_golden.py`
 checks them (slow-marked, on the CPU).
 
-Every path (phases 4, 8, 9, 10, each of 11's, 12's, 14's, 15's, 18's and 19's) runs with
+Every path (phases 4, 8, 9, 10, each of 11's, 12's, 14's, 15's, 18's and 19's, and 20 (d)) runs with
 the launch counts set to 0 just before it and read just after; a kernel of
 the path that was not launched fails the run. Phase 16's paths count
 their library GEMMs the same way (`conv_int8.launches`,
@@ -840,6 +855,9 @@ def main() -> int:
 
     # ---- phase 19: meshes across processes, host tiling, the native reader
     span_path(card, anchor, recon, p37, wide_one)
+
+    # ---- phase 20: (dp, sp) training across processes, its model served
+    span_training(card, anchor)
 
     # least time for the same work: operations over the int8 peak, bytes
     # (each input read once, each output written once) over HBM's rate
@@ -2035,6 +2053,282 @@ def span_path(card: str, anchor_1080p, recon_1080p, p37, wide_one) -> None:
         if not same_recon:
             fail("run_sequence's recon differs between the native and the NumPy IO")
     print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+
+
+# phase 20: one rank of (dp, sp) training over global meshes whose axes
+# span the 2 ranks, every position on cuda:0; argv: repo, rank, port, work dir
+SPAN_TRAIN_WORKER = textwrap.dedent("""
+    import json, sys, time
+    sys.path.insert(0, sys.argv[1])
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from qcnn_gpu_tpu_torch.data.model_files import write_static_qfp_vect_c
+    from qcnn_gpu_tpu_torch.engine.calibrate import quantize_model, solve_table
+    from qcnn_gpu_tpu_torch.engine.runner import read_model
+    from qcnn_gpu_tpu_torch.models import float_model as FM
+    from qcnn_gpu_tpu_torch.ops.fused import fused_forward
+    from qcnn_gpu_tpu_torch.parallel.distributed import DistributedRunner, initialize
+    from qcnn_gpu_tpu_torch.parallel.mesh import make_global_mesh, make_mesh
+    from qcnn_gpu_tpu_torch.quant.solver import BLU_INIT
+    from qcnn_gpu_tpu_torch.train import trainer as T
+    from qcnn_gpu_tpu_torch.train.finetune import quant_finetune
+    from qcnn_gpu_tpu_torch.train.trainer import TrainConfig, Trainer, make_grad_fn, make_train_step
+
+    here, rank, port, d = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+    meshes = json.loads(sys.argv[5])
+    initialize(f"tcp://127.0.0.1:{port}", 2, rank)
+    dev = torch.device("cuda", 0)
+    data = np.load(f"{d}/batches.npz")
+    batches = list(zip(data["x"], data["y"]))
+    rec = {"meshes": {}}
+
+    def ms_per_step(run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for xb, yb in batches[2:7]:
+            run(xb, yb)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / 5
+
+    params = FM.params_from_jax(FM.init_params(0), dev)
+    for label, (dp, sp, local) in meshes.items():
+        # (a) the gradients of the first batch, every rank passing all of it
+        mesh = make_global_mesh(dp, sp, [dev] * local)
+        fn = make_grad_fn(mesh)
+        loss, grads = fn(params, *batches[0])
+        np.savez(f"{d}/grads-{label}-rank{rank}.npz", loss=loss.cpu().numpy(),
+                 **{k: v.cpu().numpy() for k, v in grads.items()})
+        # (b) a step across the processes ("x", both ranks) against the same
+        # mesh in one process ("one", rank 0 alone), in turns
+        on = {"x": mesh}
+        if rank == 0:
+            on["one"] = make_mesh(dp, sp, devices=[dev] * (dp * sp))
+        runs = {}
+        for name, m in on.items():
+            step, make_opt = make_train_step(m, lr=1e-4)
+            model = FM.FloatVRCNN(FM.init_params(0), device=dev)
+            opt = make_opt(model)
+            for xb, yb in batches[:2]:  # warm-up: cuDNN's choices, the allocator
+                step(model, opt, xb, yb)
+            runs[name] = (lambda xb, yb, step=step, model=model, opt=opt:
+                          step(model, opt, xb, yb))
+        ms = {"x": [], "one": []}
+        for turn in ("x", "one", "one", "x"):
+            dist.barrier()  # one process at a time on the card, unless both step
+            if turn in runs:
+                ms[turn].append(ms_per_step(runs[turn]))
+            dist.barrier()
+        # where a step across the processes goes, 5 more steps: the host
+        # seconds spent waiting for the card before each exchange, in the
+        # halo exchange and in the all-reduce (each after that wait)
+        split = {"device wait": 0.0, "halo": 0.0, "all-reduce": 0.0}
+
+        def timed(fn, key):
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                split["device wait"] += t1 - t0
+                split[key] += time.perf_counter() - t1
+                return out
+            return wrapper
+
+        plain = T.halo_exchange_rows, T._allreduce
+        T.halo_exchange_rows, T._allreduce = timed(plain[0], "halo"), timed(plain[1], "all-reduce")
+        dist.barrier()
+        split["step"] = ms_per_step(runs["x"]) / 1e3 * 5
+        T.halo_exchange_rows, T._allreduce = plain
+        rec["meshes"][label] = {"cross": fn.cross_bytes, "ranks": mesh.ranks.tolist(),
+                                "ms": ms, "split": {k: 1e3 * v / 5 for k, v in split.items()}}
+
+    # (c) 20 Adam steps of Trainer on the global 1x2 mesh
+    mesh = make_global_mesh(1, 2, [dev])
+    tr = Trainer(TrainConfig(lr=1e-4, log_every=0), mesh=mesh)
+    rec["losses"] = [float(tr.step_fn(tr.model, tr.opt, xb, yb)) for xb, yb in batches[:20]]
+    tr.save_checkpoint(f"{d}/ckpt-rank{rank}")
+    trained = tr.params
+    np.savez(f"{d}/trainer-rank{rank}.npz", **trained)
+    # (d) quant_finetune on the same mesh, 10 steps, under the QP37 presets'
+    # table; rank 0 writes the model, which both serve over the mesh
+    table = solve_table(trained, qp=37)
+    out = quant_finetune(trained, table.stepw, batches[20:30], mesh=mesh, blu_ub=BLU_INIT[37],
+                         log_every=0)
+    np.savez(f"{d}/finetune-rank{rank}.npz", **out)
+    rec["stepw"] = [float(s) for s in table.stepw]
+    if rank == 0:
+        write_static_qfp_vect_c(f"{d}/model_ft.data", quantize_model(out, table))
+    dist.barrier()
+    runner = DistributedRunner(read_model(f"{d}/model_ft.data"), mesh, impl="auto")
+    anchor = np.load(f"{d}/anchor.npy")
+    x = anchor[mesh.local_slice(rank, anchor.shape)]
+    fused_forward.launches = 0
+    got = runner.restore(x)
+    rec["served"] = {"launches": fused_forward.launches, "impl": runner.run.impl,
+                     "local": list(x.shape), "positions": int((mesh.ranks == rank).sum())}
+    np.save(f"{d}/served-rank{rank}.npy", got)
+    with open(f"{d}/rank{rank}.json", "w") as fp:
+        json.dump(rec, fp)
+    dist.destroy_process_group()
+""")
+
+
+def span_training(card: str, anchor_1080p) -> None:
+    """Phase 20: (dp, sp) training in 2 gloo processes on cuda:0 over
+    global meshes 2x1, 1x2 (1 local device a rank), 1x4 and 2x2 (2), on
+    phase 17's data, every rank passing the whole batch: (a) make_grad_fn
+    against the one-process 1x1 step on the card (loss rel 1e-5, every
+    gradient within 1e-5 of its max |g|), the ranks bit-equal, the bytes
+    across ranks exact (halo 6 x 64 x 64 x 4 B = 98,304 a rank at 1x2 and
+    1x4, 0 at 2x1 and 2x2; the all-reduce's 54,674 float32 = 218,696 B);
+    (b) ms per step across the processes against the same mesh in one,
+    in turns (host clock, 5 steps after 2 warm-up steps); (c) 20 Adam
+    steps of Trainer on the global 1x2 mesh: the loss falls, both ranks'
+    params bit-equal, close to a one-process 1x2 Trainer's (max |diff| at
+    most 2 x lr x 5, median at most 1e-6), the checkpoint written by rank
+    0 alone; (d) quant_finetune on that mesh, 10 steps: weights on the
+    grid and equal on both ranks; rank 0 writes the vect_c model, which
+    DistributedRunner serves over the global 1x2 mesh on phase 4's
+    anchors (1080p batch 4), generation 3 launched once a rank, bit-equal
+    on both ranks to a one-process Engine.restore of the same file."""
+    import numpy as np
+    import torch
+
+    from qcnn_gpu_tpu_torch.data.datasets import PatchDataset
+    from qcnn_gpu_tpu_torch.engine.runner import Engine, read_model
+    from qcnn_gpu_tpu_torch.models import float_model as FM
+    from qcnn_gpu_tpu_torch.parallel.mesh import make_mesh
+    from qcnn_gpu_tpu_torch.testing import dct_compress, make_clean_frames
+    from qcnn_gpu_tpu_torch.train.trainer import TrainConfig, Trainer, make_grad_fn
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    clean = make_clean_frames(12, 256, 256)
+    ds = PatchDataset([(clean, dct_compress(clean, q=28.0))], patch=64, seed=0)
+    batches = list(ds.batches(64, 30))
+    # label -> (dp, sp, local devices a rank), and the halo bytes a rank
+    # sends (= receives): 6 rows x 64 columns x 64 patches x 4 B where an
+    # sp boundary lies between the ranks
+    meshes = {"2x1": (2, 1, 1), "1x2": (1, 2, 1), "1x4": (1, 4, 2), "2x2": (2, 2, 2)}
+    halo = {"2x1": 0, "1x2": 6 * 64 * 64 * 4, "1x4": 6 * 64 * 64 * 4, "2x2": 0}
+    n_sums = sum(v.size for v in FM.init_params(0).values()) + 1  # every weight, bias, the loss
+    with tempfile.TemporaryDirectory() as d:
+        np.savez(os.path.join(d, "batches.npz"), x=np.stack([x for x, _ in batches]),
+                 y=np.stack([y for _, y in batches]))
+        np.save(os.path.join(d, "anchor.npy"), anchor_1080p[:4])
+        script = os.path.join(d, "worker.py")
+        with open(script, "w") as fp:
+            fp.write(SPAN_TRAIN_WORKER)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = str(sock.getsockname()[1])
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, script, HERE, str(r), port, d,
+                                   json.dumps(meshes)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            logs = [pr.communicate(timeout=600)[0] for pr in procs]
+        finally:
+            for pr in procs:
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.wait()
+        if any(pr.returncode for pr in procs):
+            fail(f"phase 20 workers exited {[pr.returncode for pr in procs]}: {logs}")
+        print(f"phase 20: 2 processes, {time.perf_counter() - t0:.1f} s in all")
+        recs = []
+        for r in range(2):
+            with open(os.path.join(d, f"rank{r}.json")) as fp:
+                recs.append(json.load(fp))
+
+        def load(name):
+            with np.load(os.path.join(d, name)) as f:
+                return {k: f[k] for k in f.files}
+
+        # (a), (b)
+        ref_loss, ref = make_grad_fn(make_mesh(1, 1, devices=[dev]))(
+            FM.params_from_jax(FM.init_params(0), dev), *batches[0])
+        ref_loss, ref = float(ref_loss), {k: v.cpu().numpy() for k, v in ref.items()}
+        for label in meshes:
+            got = [load(f"grads-{label}-rank{r}.npz") for r in range(2)]
+            equal = all(np.array_equal(got[0][k], got[1][k]) for k in got[0])
+            rel = abs(float(got[0]["loss"]) / ref_loss - 1)
+            worst = max(float(np.abs(got[0][k] - ref[k]).max() / np.abs(ref[k]).max()) for k in ref)
+            cross = [recs[r]["meshes"][label]["cross"] for r in range(2)]
+            want = {"halo_sent": halo[label], "halo_received": halo[label],
+                    "allreduce": 4 * n_sums}
+            m = recs[0]["meshes"][label]
+            ms = {k: sum(v) / len(v) for k, v in m["ms"].items()}
+            ms_1 = sum(recs[1]["meshes"][label]["ms"]["x"]) / 2
+            print(f"make_grad_fn {label} across 2 ranks (ranks by position {m['ranks']}), "
+                  f"64x64x64 on cuda: loss rel diff to the 1x1 step {rel:.3g}, worst gradient "
+                  f"diff {worst:.3g} of its max |g| (tolerance 1e-5), ranks bit-equal: {equal}; "
+                  f"bytes across a call, rank 0 {cross[0]}, rank 1 {cross[1]}; a train step "
+                  f"(host clock, x one one x, 5 steps a turn after 2 warm-up): across processes "
+                  f"{ms['x']:.4f} ms (rank 1 {ms_1:.4f}), the same mesh in one process "
+                  f"{ms['one']:.4f} ({ms['x'] / ms['one']:.3f}x) {card}")
+            for r in range(2):
+                part = recs[r]["meshes"][label]["split"]
+                rest = part["step"] - part["device wait"] - part["halo"] - part["all-reduce"]
+                print(f"  {label} rank {r}, 5 more steps across processes: {part['step']:.4f} ms a "
+                      f"step, of it waiting for the card before an exchange "
+                      f"{part['device wait']:.4f}, the halo exchange {part['halo']:.4f}, the "
+                      f"all-reduce {part['all-reduce']:.4f}, the rest (enqueueing, the "
+                      f"optimizer) {rest:.4f} (host clock)")
+            if rel > 1e-5 or worst > 1e-5 or not equal or cross != [want, want]:
+                fail(f"make_grad_fn {label} across 2 ranks: loss rel {rel}, worst {worst}, "
+                     f"ranks equal {equal}, bytes {cross}, expected {want}")
+
+        # (c)
+        losses = recs[0]["losses"]
+        first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        trained = [load(f"trainer-rank{r}.npz") for r in range(2)]
+        same = recs[1]["losses"] == losses and all(
+            np.array_equal(trained[0][k], trained[1][k]) for k in FM.PARAM_NAMES)
+        one = Trainer(TrainConfig(lr=1e-4, log_every=0), mesh=make_mesh(1, 2, devices=[dev] * 2))
+        for xb, yb in batches[:20]:
+            one.step_fn(one.model, one.opt, xb, yb)
+        diffs = np.concatenate([np.abs(trained[0][k] - one.params[k]).ravel()
+                                for k in FM.PARAM_NAMES])
+        ckpts = [os.path.exists(os.path.join(d, f"ckpt-rank{r}", "latest")) for r in range(2)]
+        print(f"Trainer(mesh=global 1x2) across 2 ranks, 20 Adam steps (lr 1e-4): mean loss of "
+              f"the first 5 {first:.4f}, of the last 5 {last:.4f}; ranks' losses and params "
+              f"bit-equal: {same}; against a one-process 1x2 Trainer max |diff| "
+              f"{diffs.max():.3g}, median {np.median(diffs):.3g} (bounds 2 x lr x 5 = 1e-3, "
+              f"1e-6); checkpoint written by rank 0, 1: {ckpts} {card}")
+        if not (last < first and same and diffs.max() <= 2 * 1e-4 * 5
+                and np.median(diffs) <= 1e-6 and ckpts == [True, False]):
+            fail("Trainer(mesh=global 1x2) across 2 ranks: the loss did not fall, the ranks "
+                 "differ, the params left the one-process run's bounds or the checkpoint was "
+                 "not written by rank 0 alone")
+
+        # (d)
+        tuned = [load(f"finetune-rank{r}.npz") for r in range(2)]
+        stepw = recs[0]["stepw"]
+        names = [f"w_{n}" for n in ("C1", "C2_1", "C2_2", "C3_1", "C3_2", "C4")]
+        off = max(float(np.abs(tuned[0][n] / s - np.round(tuned[0][n] / s)).max())
+                  for n, s in zip(names, stepw))
+        same = all(np.array_equal(tuned[0][k], tuned[1][k]) for k in tuned[0])
+        eng = Engine(device=dev, impl="auto", batch_frames=4)
+        eng.set_model(37, read_model(os.path.join(d, "model_ft.data")))
+        want = eng.restore(anchor_1080p[:4], 37)
+        served = [np.load(os.path.join(d, f"served-rank{r}.npy")) for r in range(2)]
+        equal = [bool((s == want).all()) for s in served]
+        sv = [recs[r]["served"] for r in range(2)]
+        print(f"quant_finetune(mesh=global 1x2) across 2 ranks, 10 steps: weights on the grid "
+              f"(max {off:.2g} of a step off), equal on both ranks: {same}; the model written "
+              f"by rank 0, served by DistributedRunner over the global 1x2 mesh on "
+              f"4x{H}x{W} ({sv[0]['impl']}; local slices {sv[0]['local']}, {sv[1]['local']}; "
+              f"fused launches {sv[0]['launches']}, {sv[1]['launches']} for "
+              f"{sv[0]['positions']}, {sv[1]['positions']} positions): == a one-process "
+              f"Engine.restore ({eng.program_name(37)}) of the file: {equal} {card}")
+        if off > 1e-3 or not same or equal != [True, True] or any(
+                s["impl"] != "kernel3" or s["launches"] != s["positions"] for s in sv):
+            fail(f"quant_finetune(mesh=global 1x2) and its model across 2 ranks: off {off}, "
+                 f"equal {same}, served {sv}, == one process {equal}")
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

@@ -24,8 +24,14 @@ gather and the PSNR's all-reduce run on a gloo group over host tensors:
 the frames come back to the host anyway, and NCCL cannot place two ranks
 on one GPU. With one process everything here runs unchanged, which is how the
 tests drive it on a virtual CPU mesh. Still one process only:
-`restore_stream`, and training (`train/trainer.make_grad_fn` refuses a
-mesh that spans processes).
+`restore_stream`.
+
+Training takes the same meshes: `train/trainer.make_grad_fn` (and
+`Trainer`, `quant_finetune`) over a `global_mesh()` or `make_global_mesh`
+mesh, every process passing the same global batch, exchanges the halo
+rows over the mesh's gloo group and all-reduces the loss and gradients
+there; `trainer.default_mesh("cuda")` inside a process group is
+`global_mesh()`, dp over every process's devices.
 
 Departure from the JAX runner: a failure of the duplex stream raises
 after the transport is evicted. The JAX runner falls back to raw

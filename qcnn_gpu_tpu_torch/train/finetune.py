@@ -16,7 +16,11 @@ wq from them without grad, and sets each shadow weight's gradient to
 dL/dwq (the straight-through estimate), which is what the JAX step does
 when it differentiates at wq and adds the update to wf. The gradients come
 from `trainer.make_grad_fn` over a (dp, sp) mesh, as finetune.py:52 takes
-them (default: `trainer.default_mesh(device)`). Grid arithmetic is
+them (default: `trainer.default_mesh(device)`). The mesh may span
+processes (`parallel/mesh.make_global_mesh`): every rank then runs the
+fine-tune on the same batches, `make_grad_fn` gives each the global
+gradients, and every rank returns the same grid weights; nothing here
+changes for it. Grid arithmetic is
 float32 with a float32 step tensor, as the JAX package's, and rounds half
 to even. A per-channel table's [out_ch] steps broadcast over the output
 channels.
@@ -53,7 +57,8 @@ def quant_finetune(
     wbits: int = 8,
 ) -> FM.Params:
     """Run the shadow-weight fine-tune on `mesh` (or on the default mesh of
-    `device`: give exactly one) over `batches` of (images, labels)
+    `device`: give exactly one; a mesh that spans processes is called on
+    every rank of it with the same batches) over `batches` of (images, labels)
     raw-valued float32 [N,H,W,1]. Returns params (JAX
     layout) whose weights sit exactly on the signed `wbits` grid
     (round(w/stepw) in [-2^(b-1), 2^(b-1)-1]; wbits=4 is the INT4 stretch

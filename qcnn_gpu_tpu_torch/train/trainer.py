@@ -9,23 +9,30 @@ port's `Mesh` (:71-132):
   dp  batch sharding: the patches split over the mesh's dp axis;
   sp  row sharding with a halo exchange: each block takes RECEPTIVE_RADIUS
       rows of the normalized input from its row neighbours (zeros at the
-      frame's edges, `parallel/spatial.halo_exchange_rows`: `narrow`,
-      `.to()` and `torch.cat`, which autograd differentiates), and every
+      frame's edges, `parallel/spatial.halo_exchange_rows`), and every
       activation is masked to the frame's rows, so the sharded forward is
       the unsharded one and the loss, a sum over kept rows, too.
 
-Each shard takes its local loss and `torch.autograd.grad` of it (the
-halo carries data, not parameters), and the losses and gradients are
-summed over the mesh in shard order on its first device, which is the
-JAX psum of local gradients. The shards run in turn from the caller's
-thread, one device each (a virtual mesh repeats one device). The mesh
-is one process's (`make_mesh`; a mesh that spans processes raises
-NotImplementedError), so the sums cover this process's patches only,
-whatever process group exists; to train dp across processes the caller
-passes a gloo `group`, each process its own patches, and the sums are
-all-reduced over it; sp stays in a process. With sp = 1 no halo is exchanged (as
-`parallel/spatial` extends no unsplit axis): a block's loss is
-`float_model.l2_loss`, so the 1x1 mesh's gradients are its backward.
+Each shard takes its local loss and `torch.autograd.grad` of it with
+respect to the parameters only: the halo carries the normalized input,
+which no parameter moves, so no gradient flows back through it (nor
+through the JAX ppermute). Each rank sums its own shards' losses and
+gradients in shard order on its first device, which is the JAX psum of
+local gradients over one process. The shards run in turn from the
+caller's thread, one device each (a virtual mesh repeats one device).
+
+The mesh may span processes (`parallel/mesh.make_global_mesh`, or
+`default_mesh("cuda")` inside a process group): every rank then passes
+the same global batch, as every JAX process hands the jitted step the
+same numpy batch; each rank moves only its slice of it
+(`Mesh.local_slice`) to its devices, trades the halo rows of a neighbour
+on another rank over the mesh's gloo group as host tensors, and
+all-reduces the flat host copy of its sums over that group, so every rank
+holds the global loss and gradients and the Adam state stays replicated.
+A one-process mesh (`make_mesh`) trains alone, whatever process group
+exists. With sp = 1 no halo is exchanged (as `parallel/spatial` extends
+no unsplit axis): a block's loss is `float_model.l2_loss`, so the 1x1
+mesh's gradients are its backward.
 
 `torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)` is optax's default
 `adam`; the loss is 0.5 * sum of squares (tf.nn.l2_loss); the
@@ -48,7 +55,8 @@ import torch.distributed as dist
 
 from qcnn_gpu_tpu_torch.models import float_model as FM
 from qcnn_gpu_tpu_torch.models.topology import RECEPTIVE_RADIUS
-from qcnn_gpu_tpu_torch.parallel.mesh import Mesh, make_mesh, mesh_on
+from qcnn_gpu_tpu_torch.parallel.distributed import global_mesh
+from qcnn_gpu_tpu_torch.parallel.mesh import Mesh, mesh_on
 from qcnn_gpu_tpu_torch.parallel.spatial import halo_exchange_rows, split_blocks
 from qcnn_gpu_tpu_torch.train.checkpoint import (
     adam_from_torch,
@@ -115,33 +123,41 @@ def _masked_residual(params: FM.TorchParams, x_norm: torch.Tensor, blu_ub, row_v
 
 
 def _allreduce(tensors, group):
-    """Sum `tensors` over the processes of `group` (one gloo all-reduce of
-    their host copies); -> the sums on their devices."""
-    flat = torch.cat([t.detach().reshape(-1).cpu() for t in tensors])
+    """Sum `tensors`, on one device, over the processes of `group`: one
+    gloo all-reduce of their concatenation, copied to the host and back
+    once (each copy waits its turn on a card that other processes share);
+    -> (the sums on that device, the bytes of the flat copy)."""
+    flat = torch.cat([t.detach().reshape(-1) for t in tensors]).cpu()
     dist.all_reduce(flat, group=group)
+    flat = flat.to(tensors[0].device)
     out, at = [], 0
     for t in tensors:
-        out.append(flat[at:at + t.numel()].view(t.shape).to(t.device))
+        out.append(flat[at:at + t.numel()].view(t.shape))
         at += t.numel()
-    return out
+    return out, flat.numel() * flat.element_size()
 
 
 def make_grad_fn(mesh: Mesh, blu_ub: Optional[Sequence[float]] = None,
-                 halo: int = RECEPTIVE_RADIUS, group=None):
+                 halo: int = RECEPTIVE_RADIUS):
     """The sharded (loss, grads) function over the (dp, sp) mesh, shared by
     float training and the quant fine-tune (:88-132): fn(params, images,
     labels) -> (loss, {name: grad}), for module-layout params on the mesh's
     first device and raw-valued float32 [N, H, W, 1] images and labels
-    (arrays or tensors), N divisible by dp and H by sp (else ValueError).
-    The sums cover the mesh's shards; with a process `group` (a gloo group:
-    the sums cross as host tensors) each process passes its own patches and
-    the sums cover every process's. No group, no all-reduce."""
+    (arrays or tensors).
+
+    On a mesh that spans processes every rank of it calls fn at once with
+    the same global batch; the result, the sum over every shard of the
+    mesh, is bit-equal on every rank. fn raises ValueError, on every rank
+    and before any exchange, unless N divides by dp and H by sp, and each
+    sp block keeps at least `halo` rows; building it raises ValueError for
+    a mesh that is not (dp, sp) or whose positions a rank holds are no
+    rectangle. `fn.cross_bytes` holds the last call's bytes across ranks:
+    the halo rows sent and received (`halo_sent`, `halo_received`) and the
+    all-reduce's flat copy (`allreduce`); all 0 on one process."""
     if mesh.devices.ndim != 2:
         raise ValueError(f"make_grad_fn takes a (dp, sp) mesh, got {mesh.label()}")
-    if mesh.world > 1:
-        raise NotImplementedError(
-            f"make_grad_fn: mesh {mesh!r} spans processes, and the differentiable halo "
-            "crosses no process; give each process its own mesh and a `group`")
+    for r in range(mesh.world):  # the same answer on every rank
+        mesh.owned(r)
     sp = mesh.shape["sp"]
 
     def shard_loss(params, x, y, ext, j):
@@ -155,18 +171,29 @@ def make_grad_fn(mesh: Mesh, blu_ub: Optional[Sequence[float]] = None,
         return 0.5 * torch.sum(torch.square((y - 128.0) / 255.0 - pred))
 
     def grad_fn(params: FM.TorchParams, images, labels):
+        images, labels = torch.as_tensor(images), torch.as_tensor(labels)
+        shape = tuple(images.shape)
+        if len(shape) != 4 or shape[3] != 1 or tuple(labels.shape) != shape:
+            raise ValueError(f"make_grad_fn: expected images and labels [N, H, W, 1], got "
+                             f"{shape} and {tuple(labels.shape)}")
+        own = mesh.local_slice(mesh.rank, shape)  # ValueError unless N, H split
+        if sp > 1 and shape[1] // sp < halo:
+            raise ValueError(f"make_grad_fn: batch {shape} on mesh {mesh.label()}: each sp "
+                             f"block needs >= {halo} rows")
         dev = mesh.first
-        xb = split_blocks(torch.as_tensor(images).to(dev), mesh)
-        yb = split_blocks(torch.as_tensor(labels).to(dev), mesh)
+        xb = split_blocks(images[own].to(dev), mesh)
+        yb = split_blocks(labels[own].to(dev), mesh)
+        mine = [idx for idx in np.ndindex(xb.shape) if xb[idx] is not None]
+        stats = {"sent": 0, "received": 0}
         ext = np.full(xb.shape, None, dtype=object)
         if sp > 1:
-            norm = np.empty(xb.shape, dtype=object)
-            for idx in np.ndindex(xb.shape):
+            norm = np.full(xb.shape, None, dtype=object)
+            for idx in mine:
                 norm[idx] = (xb[idx] - 128.0) / 255.0
-            ext = halo_exchange_rows(norm, halo, fill=0)
+            ext = halo_exchange_rows(norm, halo, fill=0, mesh=mesh, stats=stats)
         loss, grads = None, None
         with FM.fp32_convs():
-            for idx in np.ndindex(xb.shape):
+            for idx in mine:
                 d = mesh.devices[idx]
                 local = {k: v.detach().to(d).requires_grad_() for k, v in params.items()}
                 l = shard_loss(local, xb[idx], yb[idx], ext[idx], idx[1])
@@ -174,20 +201,24 @@ def make_grad_fn(mesh: Mesh, blu_ub: Optional[Sequence[float]] = None,
                 l, g = l.detach().to(dev), [t.to(dev) for t in g]
                 loss = l if loss is None else loss + l
                 grads = g if grads is None else [a + b for a, b in zip(grads, g)]
-        if group is not None:
-            loss, *grads = _allreduce([loss, *grads], group)
+        reduced = 0
+        if mesh.world > 1:
+            (loss, *grads), reduced = _allreduce([loss, *grads], mesh.group)
+        grad_fn.cross_bytes = {"halo_sent": stats["sent"], "halo_received": stats["received"],
+                               "allreduce": reduced}
         return loss, dict(zip(FM.PARAM_NAMES, grads))
 
+    grad_fn.cross_bytes = {"halo_sent": 0, "halo_received": 0, "allreduce": 0}
     return grad_fn
 
 
 def make_train_step(mesh: Mesh, blu_ub: Optional[Sequence[float]] = None, lr: float = 1e-4,
-                    halo: int = RECEPTIVE_RADIUS, group=None):
+                    halo: int = RECEPTIVE_RADIUS):
     """-> (step, make_opt) (:135-153): step(model, opt, images, labels)
     sets the model's gradients from `make_grad_fn` and takes one Adam step,
     returning the loss (taken before the update); make_opt(model) is the
     Adam optimizer at `lr`, the counterpart of optax's init."""
-    grad_fn = make_grad_fn(mesh, blu_ub, halo, group)
+    grad_fn = make_grad_fn(mesh, blu_ub, halo)
 
     def step(model: FM.FloatVRCNN, opt: torch.optim.Adam, images, labels) -> torch.Tensor:
         loss, grads = grad_fn(model.tensors(), images, labels)
@@ -201,22 +232,26 @@ def make_train_step(mesh: Mesh, blu_ub: Optional[Sequence[float]] = None, lr: fl
 
 def default_mesh(device) -> Mesh:
     """The trainer's mesh for a device, as `cli train` builds it (cli.py:
-    148, make_mesh(len(jax.devices()), 1)): "cuda" (no index) spreads dp
-    over the visible CUDA devices (RuntimeError when there is none); one
-    device ("cuda:0", "cpu") is 1x1."""
+    148, make_mesh(len(jax.devices()), 1)): "cuda" (no index) puts dp over
+    every process's visible CUDA devices (`parallel/distributed.
+    global_mesh`: this process's alone without a process group; a
+    collective call inside one; RuntimeError when no CUDA device is
+    visible); one device ("cuda:0", "cpu") is this process's 1x1."""
     d = torch.device(device)
     if d.type == "cuda" and d.index is None:
         if not torch.cuda.is_available():
             raise RuntimeError("device 'cuda': no CUDA device is visible")
-        return make_mesh(torch.cuda.device_count(), 1)
+        return global_mesh()
     return mesh_on(d, 1, 1)
 
 
 class Trainer:
     """Orchestrates training over a (dp, sp) mesh: the step loop, the
     metrics and image logs, checkpoints. The model lives on the mesh's
-    first device. `mesh` defaults to `default_mesh(device)`; give one of
-    the two. `params` (JAX layout) default to `init_params(cfg.seed)`."""
+    first device (this rank's, on a mesh that spans processes, where every
+    rank runs the same Trainer on the same batches and holds the same
+    params). `mesh` defaults to `default_mesh(device)`; give one of the
+    two. `params` (JAX layout) default to `init_params(cfg.seed)`."""
 
     def __init__(
         self,
@@ -287,6 +322,13 @@ class Trainer:
 
     # -- checkpointing (replacing tf.train.Saver, model.py:70,146-149) --
     def save_checkpoint(self, path: str) -> None:
+        """`checkpoint.save_checkpoint` of the params and Adam state. On a
+        mesh that spans processes only rank 0 writes (every rank holds the
+        same state; ranks writing one path at once could leave a torn
+        `latest` or .npz). A departure: the JAX `save_checkpoint` is called
+        by every process."""
+        if self.mesh.rank != 0:
+            return
         save_checkpoint(path, self.params, adam_from_torch(self.opt, self.model), self.global_step)
 
     def load_checkpoint(self, path: str) -> None:

@@ -310,7 +310,17 @@ def test_one_process_global_mesh_equals_make_mesh():
 
 
 def test_engine_and_training_refuse_a_mesh_across_processes():
+    """The Engine serves one process's mesh only. Training takes a (dp, sp)
+    mesh across processes (tests/test_torch_train_span.py) and refuses, at
+    build time and so on every rank, one whose ranks hold no rectangles
+    or that is not (dp, sp)."""
     with pytest.raises(ValueError, match="spans processes"):
         Engine(mesh=_spanning())
-    with pytest.raises(NotImplementedError, match="spans processes"):
-        make_grad_fn(_spanning())
+    make_grad_fn(_spanning())
+    cpu = np.empty(4, dtype=object)
+    cpu[:] = [torch.device("cpu")] * 4
+    with pytest.raises(ValueError, match="no rectangle"):
+        make_grad_fn(Mesh(cpu.reshape(2, 2), ("dp", "sp"), [[0, 1], [1, 0]], rank=0, world=2))
+    with pytest.raises(ValueError, match=r"\(dp, sp\) mesh, got 1x2x2"):
+        make_grad_fn(Mesh(cpu.reshape(1, 2, 2), ("dp", "sp", "sw"), [[[0, 0], [1, 1]]],
+                          rank=0, world=2))

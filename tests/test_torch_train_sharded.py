@@ -19,6 +19,7 @@ Tolerances (float32 sums in another order on each side):
     and one step apart at most elsewhere."""
 
 import functools
+import json
 import os
 import socket
 import subprocess
@@ -174,25 +175,36 @@ def test_quant_finetune_on_a_1x2_mesh():
 
 WORKER = textwrap.dedent(
     """
+    import json
     import sys
     sys.path.insert(0, {repo!r})
     import numpy as np
     import torch
     from qcnn_gpu_tpu_torch.models import float_model as FM
     from qcnn_gpu_tpu_torch.parallel.distributed import initialize
-    from qcnn_gpu_tpu_torch.parallel.mesh import make_mesh
-    from qcnn_gpu_tpu_torch.train.trainer import make_grad_fn
+    from qcnn_gpu_tpu_torch.parallel.mesh import make_global_mesh, make_mesh
+    from qcnn_gpu_tpu_torch.train.trainer import default_mesh, make_grad_fn
 
     rank, world, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
     torch.set_num_threads(2)
     initialize(f"tcp://127.0.0.1:{{port}}", world, rank)
     data = np.load(out.rsplit("rank", 1)[0] + "batch.npz")
-    x, y = (np.array_split(data[k], world)[rank] for k in ("x", "y"))
-    mesh = make_mesh(1, 1, devices=[torch.device("cpu")])
+    cpu = torch.device("cpu")
     params = FM.params_from_jax(FM.init_params(3), "cpu")
-    for tag, group in (("world", torch.distributed.group.WORLD), ("local", None)):
-        loss, grads = make_grad_fn(mesh, group=group)(params, x, y)
+    # "world": the global 2x1 mesh, dp across the processes, each passing
+    # the whole batch; "local": this process's 1x1 mesh on its own patches
+    cases = (("world", make_global_mesh(world, 1, [cpu]), data["x"], data["y"]),
+             ("local", make_mesh(1, 1, devices=[cpu]),
+              *(np.array_split(data[k], world)[rank] for k in ("x", "y"))))
+    for tag, mesh, x, y in cases:
+        loss, grads = make_grad_fn(mesh)(params, x, y)
         np.savez(out + tag + ".npz", loss=loss.numpy(), **FM.params_to_jax(grads))
+    torch.cuda.is_available = lambda: True  # one CUDA device a process, stubbed
+    torch.cuda.device_count = lambda: 1
+    m = default_mesh("cuda")
+    with open(out + "default.json", "w") as fp:
+        json.dump({{"label": m.label(), "ranks": m.ranks.tolist(), "world": m.world,
+                   "devices": [str(d) for d in m.devices.flat]}}, fp)
     torch.distributed.destroy_process_group()
     """
 )
@@ -208,9 +220,10 @@ def _free_port():
 
 @pytest.fixture(scope="module")
 def two_processes(tmp_path_factory):
-    """Two processes in one gloo group, two patches each of the test batch
-    on a 1x1 CPU mesh, each taking its gradients with the group and
-    without: (the batch, {(rank, "world" | "local"): (loss, grads)})."""
+    """Two processes in one gloo group, each taking the gradients of the
+    whole test batch on the global 2x1 mesh and of its own two patches on
+    a 1x1 CPU mesh, then its default mesh for "cuda": (the batch,
+    {(rank, "world" | "local"): (loss, grads), (rank, "default"): mesh})."""
     tmp_path = tmp_path_factory.mktemp("dp2")
     (x, y), = _batches(1)
     np.savez(tmp_path / "batch.npz", x=x, y=y)
@@ -234,13 +247,15 @@ def two_processes(tmp_path_factory):
         for tag in ("world", "local"):
             f = np.load(out + tag + ".npz")
             got[r, tag] = float(f["loss"]), {k: f[k] for k in FM.PARAM_NAMES}
+        with open(out + "default.json") as fp:
+            got[r, "default"] = json.load(fp)
     return (x, y), got
 
 
 def test_two_process_dp_gradients(two_processes):
-    """With the group passed, both processes return the loss and gradients
-    of the whole batch of four, equal to the one-process 2x1 mesh's within
-    the tolerances above."""
+    """On the global 2x1 mesh (dp across the two processes) both processes
+    return the loss and gradients of the whole batch of four, equal to the
+    one-process 2x1 mesh's within the tolerances above."""
     (x, y), got = two_processes
     loss, grads = _grads(cpu_mesh(2, 1), FM.init_params(3), x, y)
     for r in range(2):
@@ -249,9 +264,10 @@ def test_two_process_dp_gradients(two_processes):
 
 
 def test_local_mesh_in_a_process_group_keeps_its_own_gradients(two_processes):
-    """A process in a group of two that passes no group takes the gradients
-    of its own two patches on its 1x1 mesh, within the tolerances above:
-    the existing default group does not all-reduce them."""
+    """A process in a group of two takes the gradients of its own two
+    patches on its one-process 1x1 mesh (`make_mesh`), within the
+    tolerances above: the existing default group does not all-reduce
+    them."""
     (x, y), got = two_processes
     params = FM.init_params(3)
     for r in range(2):
@@ -260,3 +276,14 @@ def test_local_mesh_in_a_process_group_keeps_its_own_gradients(two_processes):
         assert got[r, "local"][0] == pytest.approx(loss, rel=1e-5)
         assert_grads_close(got[r, "local"][1], grads)
     assert got[0, "local"][0] != pytest.approx(got[0, "world"][0], rel=1e-2)
+
+
+def test_default_mesh_in_a_process_group_spans_the_processes(two_processes):
+    """default_mesh("cuda") in a group of two processes of one CUDA device
+    each (the count stubbed in the worker) is the global 2x1 mesh, dp over
+    both processes: the JAX make_mesh(len(jax.devices()), 1) under
+    jax.distributed."""
+    _, got = two_processes
+    for r in range(2):
+        assert got[r, "default"] == {"label": "2x1", "ranks": [[0], [1]], "world": 2,
+                                     "devices": ["cuda:0", "cuda:0"]}
