@@ -171,12 +171,24 @@ nvcc each, all at once) and then:
        0 and served by `DistributedRunner` over the global 1x2 mesh on
        phase 4's anchors: generation 3 launched once a rank, bit-equal to a
        one-process `Engine.restore` of the file.
+  21   generation 3's diagnostic instances (`fused_forward(stages=,
+       _debug=)`, a library of their own built per tile at first use): none
+       built or launched by phases 1-20; (a) the library at 24x32 and 32x32
+       (the table's tiles) built in parallel, its build seconds, 4 entries
+       and 0 spills in its `ptxas` report; every variant (truncated after
+       S1, S2, S3, and `zero_a1`) bit for bit against its plain version on
+       phase 2's cases (frame bounds included) and on each halo-extended
+       block of a 1x2x2 mesh at 1080p under its bounds; (b)
+       `tools/stage_marginals` at 1920x1080 batch 4 (the main path's shape
+       and tile) and at 416x240 batch 1 (24x32), with the counts set to 0
+       before and read after: every variant of the tile launched, the
+       per-stage split and its JSON line.
 
 The committed 1080p and class-A golden PSNRs need matplotlib's sample
 data, which the smoke does not assume: `tests/test_torch_golden.py`
 checks them (slow-marked, on the CPU).
 
-Every path (phases 4, 8, 9, 10, each of 11's, 12's, 14's, 15's, 18's and 19's, and 20 (d)) runs with
+Every path (phases 4, 8, 9, 10, each of 11's, 12's, 14's, 15's, 18's and 19's, 20 (d) and 21 (b)) runs with
 the launch counts set to 0 just before it and read just after; a kernel of
 the path that was not launched fails the run. Phase 16's paths count
 their library GEMMs the same way (`conv_int8.launches`,
@@ -859,6 +871,9 @@ def main() -> int:
     # ---- phase 20: (dp, sp) training across processes, its model served
     span_training(card, anchor)
 
+    # ---- phase 21: generation 3 truncated at each stage, and its split
+    stage_instances = stage_split(card, models, fws, cases, anchor)
+
     # least time for the same work: operations over the int8 peak, bytes
     # (each input read once, each output written once) over HBM's rate
     net_ops = 2 * MACS_PER_PIXEL * px
@@ -884,6 +899,8 @@ def main() -> int:
     # path's instance (row 1's "ms") beside 24x40's
     rows[0]["tiles"] = {"phase 4": main_tiles, "phase 18 (c)": tiles_18,
                         "ms": {main_tile: mean["v3t"], "24x40": mean["v3"]}}
+    # phase 21's diagnostic instances: max_abs_err and launches per tile
+    rows[0]["stage_instances"] = stage_instances
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2329,6 +2346,127 @@ def span_training(card: str, anchor_1080p) -> None:
             fail(f"quant_finetune(mesh=global 1x2) and its model across 2 ranks: off {off}, "
                  f"equal {same}, served {sv}, == one process {equal}")
     print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+
+
+def stage_split(card: str, models, fws, cases, anchor_1080p) -> dict:
+    """Phase 21: generation 3's diagnostic instances (ops/fused.STAGE_VARIANTS,
+    csrc/qvrcnn_fused.cu built with the tile's defines). Nothing of phases
+    1-20 built or launched them. (a) The library at the table's tiles,
+    24x32 and 32x32, built in parallel (build seconds; 4 entries, 0 spills);
+    every variant bit for bit against its plain version on phase 2's cases
+    and on each halo-extended block of a 1x2x2 mesh at 1080p under its
+    frame bounds (comparison launches). (b) tools/stage_marginals at
+    1920x1080 batch 4 and 416x240 batch 1, the counts zeroed before and
+    read after: every variant of the tool's tile launched. Returns, per
+    tile, the worst max_abs_err of each variant and (b)'s launches."""
+    import numpy as np
+    import torch
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    from qcnn_gpu_tpu_torch.ops import build, tuning
+    from qcnn_gpu_tpu_torch.ops.fused import (
+        KERNEL,
+        STAGE_VARIANTS,
+        fused_forward,
+        fused_forward_reference,
+        stage_defines,
+    )
+    from qcnn_gpu_tpu_torch.parallel.mesh import make_mesh
+    from qcnn_gpu_tpu_torch.parallel.spatial import extended_blocks, split_blocks
+    from qcnn_gpu_tpu_torch.tools import stage_marginals
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    diag = [k for k in build.build_info if k.startswith(KERNEL + "[")]
+    if diag or any(fused_forward.stage_launches.values()):
+        fail(f"phases 1-20 reached the diagnostic library: built {diag}, launched "
+             f"{ {k: n for k, n in fused_forward.stage_launches.items() if n} }")
+    print("phases 1-20 built no diagnostic library and launched no diagnostic instance")
+
+    # (a) the library at the table's tiles, then every variant == plain
+    tiles = ((24, 32), (32, 32))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(tiles)) as pool:  # one nvcc per tile, both at once
+        list(pool.map(lambda t: build.library(KERNEL, stage_defines(t)), tiles))
+    print(f"diagnostic libraries at {', '.join(f'{th}x{tw}' for th, tw in tiles)}, in parallel: "
+          f"{time.perf_counter() - t0:.2f} s in all")
+    for t in tiles:
+        key = build.key(KERNEL, stage_defines(t))
+        log = build.build_info[key]["log"]
+        print(f"  {key}: {build.build_info[key]['seconds']:.2f} s")
+        for line in log.splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                print("    ptxas: entry", entry.group(1))
+            elif "registers" in line or "spill" in line:
+                print("    ptxas:", line.strip())
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
+        entries = len(re.findall(r"Compiling entry function", log))
+        if not spills or any(int(n) for n in spills) or entries != len(STAGE_VARIANTS):
+            fail(f"{key}: ptxas compiled {entries} kernels (expected {len(STAGE_VARIANTS)}), "
+                 f"spills {spills}")
+        print(f"  {key}: {entries} entries, 0 bytes spilled")
+
+    def variant(s, d):
+        return f"stages={s}" + (f" {d}" if d else "")
+
+    worst = {t: {variant(s, d): 0 for s, d in STAGE_VARIANTS} for t in tiles}
+
+    def check(x, fw, bounds, what):
+        for s, d in STAGE_VARIANTS:
+            want = fused_forward_reference(x, fw, *bounds, stages=s, _debug=d)
+            for t in tiles:
+                got = fused_forward(x, fw, *bounds, tile=t, stages=s, _debug=d)
+                torch.cuda.synchronize()
+                if got.shape != x.shape or got.dtype != torch.uint8:
+                    fail(f"{variant(s, d)} at {t}: output {got.dtype} {tuple(got.shape)}")
+                err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
+                worst[t][variant(s, d)] = max(worst[t][variant(s, d)], err)
+                if err != 0:
+                    fail(f"generation 3 {variant(s, d)} at {t[0]}x{t[1]} differs from its plain "
+                         f"version: {what} bounds={bounds or 'frame'} (max_abs_err {err})")
+
+    for name, geo, kind, bounds in cases:
+        if kind == "synth":
+            x = frames(*geo, seed=sum(geo))
+        else:
+            x = np.full(geo, 0 if kind == "zeros" else 255, np.uint8)
+        check(torch.from_numpy(x).to(dev), fws[name], bounds, f"{name} {geo} {kind}")
+    mesh = make_mesh(1, 2, devices=[dev] * 4, sw=2)
+    xe, bounds = extended_blocks(split_blocks(torch.from_numpy(anchor_1080p[:1]).to(dev), mesh),
+                                 6, 128)
+    for idx in np.ndindex(xe.shape):
+        check(xe[idx], fws["golden-QP37"], bounds[idx],
+              f"1x2x2 block {idx} {tuple(xe[idx].shape)}")
+    for t in tiles:
+        print(f"generation 3 at {t[0]}x{t[1]}, each variant vs plain on phase 2's {len(cases)} "
+              f"cases and the {xe.size} blocks of a 1x2x2 mesh at 1080p under their bounds: "
+              + ", ".join(f"{k} max_abs_err={v}" for k, v in worst[t].items()))
+
+    # (b) the split, through the tool, at the main path's shape and at 240p
+    out = {f"{th}x{tw}": {"max_abs_err": worst[th, tw], "launches": {}} for th, tw in tiles}
+    for h, w, b in ((1080, 1920, 4), (240, 416, 1)):
+        want = tuning.tuned_kwargs(h=h, w=w)
+        tile = (want.get("th", 24), want.get("tw", 40))
+        fused_forward.launches = 0
+        fused_forward.stage_launches = dict.fromkeys(fused_forward.stage_launches, 0)
+        res = stage_marginals.main([str(h), str(w), str(b)])
+        launched = {variant(s, d): fused_forward.stage_launches[(*tile, s, d)]
+                    for s, d in STAGE_VARIANTS}
+        launched["stages=4"] = fused_forward.launches
+        if res["tile"] != f"{tile[0]}x{tile[1]}" or not all(launched.values()):
+            fail(f"tools/stage_marginals {w}x{h} batch {b}: tile {res['tile']} (the table: "
+                 f"{tile}), launches {launched}")
+        if any(res["max_abs_err"].values()):
+            fail(f"tools/stage_marginals {w}x{h} batch {b}: {res['max_abs_err']}")
+        print(f"tools/stage_marginals {w}x{h} batch {b} at {res['tile']}: launches {launched}; "
+              f"marginals S1..S4 {', '.join(f'{v:.4f}' for v in res['marginal_ms'].values())} "
+              f"ms/frame, sum {sum(res['marginal_ms'].values()):.4f} = stages=4's "
+              f"{res['ms_per_frame']['4']['mean']:.4f} {card}")
+        out.setdefault(res["tile"], {"launches": {}})["launches"][f"{w}x{h} b{b}"] = launched
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 if __name__ == "__main__":

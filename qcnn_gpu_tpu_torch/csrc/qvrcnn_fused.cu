@@ -67,6 +67,19 @@
 // every generic-proxy write is fenced for the async proxy before them.
 // tests/test_torch_fused_split.py emulates this layout in numpy and checks
 // that property byte by byte; ops/fused.py holds the same constants.
+//
+// Diagnostic instances (a separate library, never the main path's): built
+// with -DQVRCNN_DIAG_TH=th -DQVRCNN_DIAG_TW=tw, this source compiles only
+// `qvrcnn_fused_stages`, the th x tw tile's QVRCNN_STAGE_VARIANTS:
+// generation 3 truncated after stage k (k = 1, 2, 3), writing
+// clamp(x + channel 0 of stage k's masked activation, 0, 255) in place of
+// S4, and the whole network on a window that is never read from global
+// memory (`zero_a1`: x - 128 taken as 0 everywhere, the residual added to
+// the true x). Timing them in turns splits the kernel's time by stage
+// (tools/stage_marginals.py); ops/fused.fused_forward(stages=, _debug=)
+// launches them and ops/fused.fused_forward_reference is their plain
+// version. Without the defines (the main library) only
+// `qvrcnn_fused_forward` is compiled, one instance per tile.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,6 +90,10 @@
 // 24x40, the default, and those the measured table (ops/tuning.py) serves
 // somewhere: 24x32 at 416x240, 32x32 from 832x480 up.
 #define QVRCNN_TILES(X) X(24, 40) X(24, 32) X(32, 32)
+
+// The diagnostic variants, X(stages, zero_a1) each (ops/fused.STAGE_VARIANTS):
+// truncated after S1, S2, S3, and the whole network with the window unread.
+#define QVRCNN_STAGE_VARIANTS(X) X(1, false) X(2, false) X(3, false) X(4, true)
 
 namespace {
 
@@ -386,9 +403,32 @@ __device__ __forceinline__ void stage4(uint32_t sbase, uint8_t* smem, const uint
   }
 }
 
+// A build truncated after stage K (1..3) writes, in place of S4, each
+// output pixel's clamp(x + a, 0, 255), a = channel 0 of stage K's
+// requantized, masked activation (0..127) at that pixel: byte 0 of plane 0
+// of stage K's region (S1 and S3 in buffer A, S2 in B), whose origin lies
+// 4, 2 or 1 positions before the tile's first output, on its own pitch.
+template <class G, int K>
+__device__ __forceinline__ void emit_stage(const uint8_t* smem, const uint8_t* xf, uint8_t* yf,
+                                           int H, int W, Tile tl) {
+  static_assert(K >= 1 && K <= 3, "stages 1..3");
+  constexpr int OFF = K == 1 ? 4 : (K == 2 ? 2 : 1);
+  constexpr int P = K == 1 ? G::P1 : (K == 2 ? G::P2 : G::P3);
+  const uint8_t* act = smem + (K == 2 ? G::SM_B : G::SM_A);
+  for (int o = threadIdx.x; o < G::TH * G::TW; o += NTHREADS) {
+    const int r = o / G::TW, c = o - (o / G::TW) * G::TW;
+    const int fr = tl.ty0 + r, fc = tl.tx0 + c;
+    if (fr >= H || fc >= W) continue;
+    const size_t i = size_t(fr) * W + fc;
+    const int rec = int(xf[i]) + int(act[((r + OFF) * P + c + OFF) * 16]);
+    yf[i] = uint8_t(rec > 255 ? 255 : rec);
+  }
+}
+
 // The window of a tile, x - 128 inside the frame bounds and 0 outside,
 // loaded into registers (issued early, stored to shared memory later).
-template <class G>
+// ZERO (the `zero_a1` diagnostic) reads no pixel: x - 128 = 0 everywhere.
+template <class G, bool ZERO>
 __device__ __forceinline__ void load_window(uint32_t (&pre)[G::RAW_PER_THREAD], const uint8_t* x,
                                             int H, int W, Tile tl, Bounds bd) {
   const uint8_t* xf = x + size_t(tl.f) * H * W;
@@ -396,11 +436,13 @@ __device__ __forceinline__ void load_window(uint32_t (&pre)[G::RAW_PER_THREAD], 
   for (int k = 0; k < G::RAW_PER_THREAD; ++k) {
     const int i = threadIdx.x + k * NTHREADS;
     const int r = tl.ty0 - G::HALO + i / G::P0, c = tl.tx0 - G::HALO + i % G::P0;
-    pre[k] = (i < G::RAW && bd.inside(r, c)) ? uint32_t(xf[size_t(r) * W + c]) : 128u;
+    pre[k] = (!ZERO && i < G::RAW && bd.inside(r, c)) ? uint32_t(xf[size_t(r) * W + c]) : 128u;
   }
 }
 
-template <class G>
+// STAGES < 4: truncated after that stage (emit_stage); ZERO_A1: the window
+// unread (load_window). The main path's instances are <G, 4, false>.
+template <class G, int STAGES, bool ZERO_A1>
 __global__ void __launch_bounds__(NTHREADS, 1)
 qvrcnn_fused_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
                     const int8_t* __restrict__ wsplit, const int* __restrict__ vec_g,
@@ -421,7 +463,7 @@ qvrcnn_fused_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
   const int total = nframes * per_frame;
   uint32_t pre[G::RAW_PER_THREAD];
   int tile = blockIdx.x;
-  load_window<G>(pre, x, H, W, tile_at<G>(tile, tiles_x, per_frame), bd);
+  load_window<G, ZERO_A1>(pre, x, H, W, tile_at<G>(tile, tiles_x, per_frame), bd);
   cp_async_wait_all();
   fence_async_smem();
   __syncthreads();
@@ -436,7 +478,8 @@ qvrcnn_fused_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
     }
     __syncthreads();
     if (tile + int(gridDim.x) < total)
-      load_window<G>(pre, x, H, W, tile_at<G>(tile + gridDim.x, tiles_x, per_frame), bd);
+      load_window<G, ZERO_A1>(pre, x, H, W, tile_at<G>(tile + gridDim.x, tiles_x, per_frame),
+                                bd);
     // expanded window on S1's pitch: position (r, c) holds window (r + i, c + j)
     // as byte 5i + j
     for (int e = threadIdx.x; e < G::EXP; e += NTHREADS) {
@@ -451,32 +494,45 @@ qvrcnn_fused_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
     }
     fence_async_smem();
     __syncthreads();
+    const size_t frame = size_t(tl.f) * H * W;
     stage1<G>(sbase, smem, tl, bd);
     fence_async_smem();
     __syncthreads();
+    if constexpr (STAGES == 1) {
+      emit_stage<G, 1>(smem, x + frame, y + frame, H, W, tl);
+      continue;
+    }
     stage2<G>(sbase, smem, tl, bd);
     fence_async_smem();
     __syncthreads();
+    if constexpr (STAGES == 2) {
+      emit_stage<G, 2>(smem, x + frame, y + frame, H, W, tl);
+      continue;
+    }
     stage3<G>(sbase, smem, tl, bd);
     fence_async_smem();
     __syncthreads();
-    const size_t frame = size_t(tl.f) * H * W;
+    if constexpr (STAGES == 3) {
+      emit_stage<G, 3>(smem, x + frame, y + frame, H, W, tl);
+      continue;
+    }
     stage4<G>(sbase, smem, x + frame, y + frame, H, W, tl, b4, mul4, shift4);
   }
 }
 
 // Launch instance G on `stream`: one block per SM (at most one per tile);
 // the dynamic shared-memory attribute is set once per device.
-template <class G>
+template <class G, int STAGES = 4, bool ZERO_A1 = false>
 int launch(const void* x, void* y, const void* wsplit, const void* vec, int B, int H, int W,
            Bounds bd, int b4, int mul4, int shift4, void* stream) {
   static int sm_count[split::MAX_DEVICES] = {};  // 0 until the device's first launch
   int sms = 0;
-  const int err = split::prepare(qvrcnn_fused_kernel<G>, G::SMEM_BYTES, sm_count, sms);
+  const auto kernel = qvrcnn_fused_kernel<G, STAGES, ZERO_A1>;
+  const int err = split::prepare(kernel, G::SMEM_BYTES, sm_count, sms);
   if (err != 0) return err;
   const int total = B * cdiv(H, G::TH) * cdiv(W, G::TW);
   const int grid = total < sms ? total : sms;
-  qvrcnn_fused_kernel<G><<<grid, NTHREADS, G::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, NTHREADS, G::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(x), static_cast<uint8_t*>(y),
       static_cast<const int8_t*>(wsplit), static_cast<const int*>(vec), B, H, W, bd, b4, mul4,
       shift4);
@@ -487,6 +543,7 @@ int launch(const void* x, void* y, const void* wsplit, const void* vec, int B, i
 
 extern "C" {
 
+#ifndef QVRCNN_DIAG_TH
 // Launch the th x tw instance (one of QVRCNN_TILES) on `stream` (a
 // cudaStream_t) on the current device. Returns the cudaError_t of the
 // device query, of the one-time attribute call for this device and
@@ -504,6 +561,31 @@ int qvrcnn_fused_forward(const void* x, void* y, const void* wsplit, const void*
 #undef QVRCNN_LAUNCH
   return int(cudaErrorInvalidValue);
 }
+#else
+#define QVRCNN_IS_DIAG_TILE(TH, TW) || (TH == QVRCNN_DIAG_TH && TW == QVRCNN_DIAG_TW)
+static_assert(false QVRCNN_TILES(QVRCNN_IS_DIAG_TILE), "the diagnostic tile is one of QVRCNN_TILES");
+#undef QVRCNN_IS_DIAG_TILE
+
+// The diagnostic library's one entry: launch the variant (stages,
+// zero_a1) of QVRCNN_STAGE_VARIANTS at the tile this library was built
+// for, as qvrcnn_fused_forward launches the full network (same arguments
+// and errors; cudaErrorInvalidValue for another tile or variant).
+int qvrcnn_fused_stages(const void* x, void* y, const void* wsplit, const void* vec, int B,
+                        int H, int W, int row_lo, int row_hi, int col_lo, int col_hi, int b4,
+                        int mul4, int shift4, int th, int tw, int stages, int zero_a1,
+                        void* stream) {
+  using G = Geo3<QVRCNN_DIAG_TH, QVRCNN_DIAG_TW>;
+  if (th != G::TH || tw != G::TW) return int(cudaErrorInvalidValue);
+  const Bounds bd{row_lo > 0 ? row_lo : 0, row_hi < H ? row_hi : H,
+                  col_lo > 0 ? col_lo : 0, col_hi < W ? col_hi : W};
+#define QVRCNN_LAUNCH(S, Z)                                                                    \
+  if (stages == S && (zero_a1 != 0) == Z)                                                      \
+    return launch<G, S, Z>(x, y, wsplit, vec, B, H, W, bd, b4, mul4, shift4, stream);
+  QVRCNN_STAGE_VARIANTS(QVRCNN_LAUNCH)
+#undef QVRCNN_LAUNCH
+  return int(cudaErrorInvalidValue);
+}
+#endif
 
 const char* qvrcnn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

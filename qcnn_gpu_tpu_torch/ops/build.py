@@ -2,10 +2,12 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 `nvcc` into `qcnn_gpu_tpu_torch/build/lib<name>-<hash>.so`, where the hash
-covers the sources in `csrc/` and the flags: an edited source rebuilds,
-an unchanged one loads the library already built. Only the sources in
-the repository are used. A missing `nvcc` or a failed compile raises;
-there is no other path to the kernels.
+covers the sources in `csrc/`, the flags and the preprocessor defines: an
+edited source rebuilds, an unchanged one loads the library already built.
+A source built with defines (generation 3's diagnostic instances) is a
+library of its own, keyed `<name>[<define>,...]`. Only the sources in the
+repository are used. A missing `nvcc` or a failed compile raises; there
+is no other path to the kernels.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict
+from typing import Dict, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -30,8 +32,9 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-# name -> {"seconds": build time (0.0 when the library was already built),
-#          "log": nvcc's output, incl. -Xptxas -v register/smem report}
+# key (`key(name, defines)`) -> {"seconds": build time (0.0 when the
+# library was already built), "log": nvcc's output, incl. -Xptxas -v
+# register/smem report}
 build_info: Dict[str, dict] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -53,8 +56,8 @@ def nvcc_path() -> str:
     )
 
 
-def _digest(src: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(src: str, flags: Tuple[str, ...]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for path in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
         with open(path, "rb") as fp:
             h.update(os.path.basename(path).encode() + fp.read())
@@ -62,23 +65,32 @@ def _digest(src: str) -> str:
     return h.hexdigest()[:16]
 
 
-def library(name: str) -> ctypes.CDLL:
-    """Compile (if needed) and load csrc/<name>.cu; cached per process."""
-    if name in _loaded:
-        return _loaded[name]
+def key(name: str, defines: Tuple[str, ...] = ()) -> str:
+    """The library of csrc/<name>.cu built with `defines` ("NAME=value"):
+    `name` alone without defines, else `name[define,...]`."""
+    return f"{name}[{','.join(defines)}]" if defines else name
+
+
+def library(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Compile (if needed) and load csrc/<name>.cu with `defines` passed
+    to nvcc as -D flags; cached per process."""
+    k = key(name, defines)
+    if k in _loaded:
+        return _loaded[k]
     src = os.path.join(CSRC, f"{name}.cu")
     if not os.path.isfile(src):
         raise FileNotFoundError(f"CUDA source not found: {src}")
-    so = os.path.join(BUILD, f"lib{name}-{_digest(src)}.so")
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    so = os.path.join(BUILD, f"lib{name}-{_digest(src, flags)}.so")
     if os.path.exists(so):
-        build_info[name] = {"seconds": 0.0, "log": "already built: " + so}
+        build_info[k] = {"seconds": 0.0, "log": "already built: " + so}
     else:
         nvcc = nvcc_path()
         os.makedirs(BUILD, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+            [nvcc, *flags, "-o", tmp, src],
             capture_output=True, text=True,
         )
         seconds = time.perf_counter() - t0
@@ -86,18 +98,19 @@ def library(name: str) -> ctypes.CDLL:
         if proc.returncode != 0:
             if os.path.exists(tmp):
                 os.remove(tmp)
-            raise RuntimeError(f"nvcc failed on {src} (rc={proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc failed on {key(name, defines)} "
+                               f"(rc={proc.returncode}):\n{log}")
         os.replace(tmp, so)  # atomic: a concurrent process never loads a partial file
-        build_info[name] = {"seconds": seconds, "log": log}
+        build_info[k] = {"seconds": seconds, "log": log}
     lib = ctypes.CDLL(so)
-    _loaded[name] = lib
+    _loaded[k] = lib
     return lib
 
 
-def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
-    """The C function `symbol` of csrc/<name>.cu with its argument types
-    set and an int (cudaError_t) result."""
-    lib = library(name)
+def function(name: str, symbol: str, argtypes, defines: Tuple[str, ...] = ()) -> ctypes._CFuncPtr:
+    """The C function `symbol` of csrc/<name>.cu (built with `defines`)
+    with its argument types set and an int (cudaError_t) result."""
+    lib = library(name, defines)
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
         fn.argtypes = list(argtypes)
@@ -107,11 +120,12 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     return fn
 
 
-def check(name: str, err: int) -> None:
-    """Raise RuntimeError for a nonzero cudaError_t from csrc/<name>.cu."""
+def check(name: str, err: int, defines: Tuple[str, ...] = ()) -> None:
+    """Raise RuntimeError for a nonzero cudaError_t from csrc/<name>.cu
+    (built with `defines`)."""
     if err != 0:
-        msg = library(name).qvrcnn_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+        msg = library(name, defines).qvrcnn_error_string(err).decode()
+        raise RuntimeError(f"{key(name, defines)} launch failed: CUDA error {err} ({msg})")
 
 
 def stream_of(t) -> int:

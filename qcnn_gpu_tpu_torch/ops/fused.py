@@ -24,6 +24,17 @@ frame) stand in for the JAX kernel's `row_bounds`/`col_bounds`
 x-128 domain, and every stage output outside is zeroed — per-layer SAME
 padding at a frame edge that lies inside the array, as a halo-extended
 spatial shard needs.
+
+Diagnostic variants (`stages`, `_debug`), the counterpart of
+`build_pallas_forward3(stages=, _debug=)` (pallas_pipeline3.py:504-510),
+which `tools/stage_marginals.py` times to split the kernel's time by
+stage: `stages=k` (1..3) runs S1..Sk and writes clamp(x + a, 0, 255), a
+= channel 0 of stage k's masked activation in the oracle's channel order
+(`v1`, `conc1`, `conc2`); `_debug="zero_a1"` runs the network on a window
+that is never read (x - 128 = 0 everywhere, under the same bounds) and
+adds its residual to the true x. On the card they are a library of their
+own (`STAGE_VARIANTS` at one tile, built at first use); the main path
+never passes either argument.
 """
 
 from __future__ import annotations
@@ -128,6 +139,19 @@ PITCH, ROWS, BLOCKS, EXPANDED, PLANE = _L3.pitch, _L3.rows, _L3.blocks, _L3.expa
 # the tiles generation 3 is compiled at (csrc/qvrcnn_fused.cu
 # QVRCNN_TILES), the default first; ops/tuning.py picks one per geometry
 TILES = ((24, 40), (24, 32), (32, 32))
+# the diagnostic variants (csrc/qvrcnn_fused.cu QVRCNN_STAGE_VARIANTS),
+# (stages, _debug) each; (4, "") is the main library's kernel
+STAGE_VARIANTS = ((1, ""), (2, ""), (3, ""), (4, "zero_a1"))
+# JAX's other two bisections name TPU steps this kernel does not have
+DEBUG_ABSENT = {
+    "raw_out": "it skips the XLA unpack and residual pass after the TPU kernel "
+               "(pallas_pipeline3.py:741-742); the Hopper kernel adds the residual "
+               "inside its S4, so there is no pass to skip",
+    "no_split": "it disables the band split into masked-edge and unmasked-interior "
+                "launches (pallas_pipeline3.py:715); the Hopper kernel is one launch "
+                "whose every tile checks the bounds per position, so no_split is its "
+                "only mode",
+}
 
 
 def check_tile(tile) -> Tuple[int, int]:
@@ -327,6 +351,29 @@ class FusedWeights:
         )
 
 
+def check_variant(stages, _debug) -> Tuple[int, bool]:
+    """(stages, zero_a1) of a diagnostic request; ValueError unless
+    `stages` is an int in 1..4 and `_debug` is "" or "zero_a1" (with
+    stages 4: the variant compiled), naming why for JAX's "raw_out" and
+    "no_split"."""
+    if isinstance(stages, bool) or not isinstance(stages, int) or not 1 <= stages <= 4:
+        raise ValueError(f"stages must be an int in 1..4, got {stages!r}")
+    if _debug in DEBUG_ABSENT:
+        raise ValueError(f"_debug={_debug!r} has no counterpart here: {DEBUG_ABSENT[_debug]}")
+    if _debug not in ("", "zero_a1"):
+        raise ValueError(f"unknown _debug {_debug!r}; the one bisection is 'zero_a1'")
+    if _debug and stages != 4:
+        raise ValueError(f"_debug='zero_a1' runs the whole network (stages 4), got stages={stages}")
+    return stages, bool(_debug)
+
+
+def stage_defines(tile) -> Tuple[str, str]:
+    """The defines that build csrc/qvrcnn_fused.cu's diagnostic library
+    for `tile` (STAGE_VARIANTS at that tile only)."""
+    th, tw = check_tile(tile)
+    return (f"QVRCNN_DIAG_TH={th}", f"QVRCNN_DIAG_TW={tw}")
+
+
 def _bounds(h: int, w: int, row_lo, row_hi, col_lo, col_hi):
     row_hi = h if row_hi is None else row_hi
     col_hi = w if col_hi is None else col_hi
@@ -355,8 +402,15 @@ def fused_forward_reference(
     row_hi: Optional[int] = None,
     col_lo: int = 0,
     col_hi: Optional[int] = None,
+    stages: int = 4,
+    _debug: str = "",
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: uint8 [B, H, W] -> uint8."""
+    """Plain PyTorch version of the kernel: uint8 [B, H, W] -> uint8.
+    With `stages` k < 4 it stops after merged stage k and adds channel 0
+    of its masked activation to x; with `_debug="zero_a1"` the network
+    reads x - 128 = 0 everywhere and its residual is added to x
+    (`check_variant`)."""
+    stages, zero_a1 = check_variant(stages, _debug)
     check_frames(x_u8, fw.vec.device)
     b, h, w = x_u8.shape
     row_lo, row_hi, col_lo, col_hi = _bounds(h, w, row_lo, row_hi, col_lo, col_hi)
@@ -372,15 +426,20 @@ def fused_forward_reference(
         return t.view(-1, 1, 1)
 
     v = mask(x_u8.to(torch.int64) - 128)[:, None]  # [B, 1, H, W]
+    if zero_a1:
+        v = torch.zeros_like(v)
     for i in range(3):
         u = conv_exact(v, fw.w[i], fw.bias[i])
         v = mask(requant_fast(u, ch(fw.bound[i]), ch(fw.mul[i]), ch(fw.shift[i])))
+        if i + 1 == stages:
+            return apply_residual_u8(x_u8, v[:, 0])
     u4 = conv_exact(v, fw.w[3], fw.bias[3])
     res = final_residual_i32(u4, fw.mul4, fw.shift4)[:, 0]
     return apply_residual_u8(x_u8, res)
 
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+_STAGES_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 
 
 def fused_forward(
@@ -391,6 +450,8 @@ def fused_forward(
     col_lo: int = 0,
     col_hi: Optional[int] = None,
     tile: Tuple[int, int] = (TILE_H, TILE_W),
+    stages: int = 4,
+    _debug: str = "",
 ) -> torch.Tensor:
     """Restore uint8 frames [B, H, W] through the fused network.
 
@@ -398,11 +459,21 @@ def fused_forward(
     TILES, else ValueError; one launch on the current stream, counted in
     `fused_forward.launches` and, by tile, `fused_forward.tile_launches`)
     or raises. A CPU tensor goes through `fused_forward_reference`, the
-    kernel's plain version, which no tile changes."""
+    kernel's plain version, which no tile changes.
+
+    `stages` < 4 or `_debug="zero_a1"` (`check_variant`) launch a
+    diagnostic variant instead, from the `tile`'s diagnostic library
+    (built at first use; counted in `fused_forward.stage_launches[th, tw,
+    stages, _debug]` alone). Its output is the port's own definition
+    (module docstring), not JAX's truncated output, which reads the first
+    rows and lanes 0-1 of the TPU kernel's packed VMEM buffer
+    (pallas_pipeline3.py:381-383): a TPU layout read, offset from the
+    output pixels."""
     th, tw = check_tile(tile)
+    stages, zero_a1 = check_variant(stages, _debug)
     check_frames(x_u8, fw.vec.device)
     if x_u8.device.type == "cpu":
-        return fused_forward_reference(x_u8, fw, row_lo, row_hi, col_lo, col_hi)
+        return fused_forward_reference(x_u8, fw, row_lo, row_hi, col_lo, col_hi, stages, _debug)
     if x_u8.device.type != "cuda":
         raise ValueError(f"no kernel for device {x_u8.device}")
     b, h, w = x_u8.shape
@@ -413,19 +484,26 @@ def fused_forward(
     out = torch.empty_like(x_u8)
     if x_u8.numel() == 0:
         return out
-    fn = build.function(KERNEL, "qvrcnn_fused_forward", _ARGTYPES)
+    args = (x_u8.data_ptr(), out.data_ptr(), fw.split.data_ptr(), fw.vec.data_ptr(),
+            b, h, w, row_lo, row_hi, col_lo, col_hi, fw.b4, fw.mul4, fw.shift4, th, tw)
+    if stages == 4 and not zero_a1:
+        fn = build.function(KERNEL, "qvrcnn_fused_forward", _ARGTYPES)
+        with torch.cuda.device(x_u8.device):
+            err = fn(*args, build.stream_of(x_u8))
+        build.check(KERNEL, err)
+        fused_forward.launches += 1
+        fused_forward.tile_launches[th, tw] += 1
+        return out
+    defines = stage_defines((th, tw))
+    fn = build.function(KERNEL, "qvrcnn_fused_stages", _STAGES_ARGTYPES, defines)
     with torch.cuda.device(x_u8.device):
-        err = fn(
-            x_u8.data_ptr(), out.data_ptr(),
-            fw.split.data_ptr(), fw.vec.data_ptr(),
-            b, h, w, row_lo, row_hi, col_lo, col_hi,
-            fw.b4, fw.mul4, fw.shift4, th, tw, build.stream_of(x_u8),
-        )
-    build.check(KERNEL, err)
-    fused_forward.launches += 1
-    fused_forward.tile_launches[th, tw] += 1
+        err = fn(*args, stages, int(zero_a1), build.stream_of(x_u8))
+    build.check(KERNEL, err, defines)
+    fused_forward.stage_launches[th, tw, stages, _debug] += 1
     return out
 
 
 fused_forward.launches = 0
 fused_forward.tile_launches = dict.fromkeys(TILES, 0)
+fused_forward.stage_launches = {(th, tw, s, d): 0 for th, tw in TILES
+                                for s, d in STAGE_VARIANTS}

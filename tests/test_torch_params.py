@@ -159,7 +159,7 @@ def test_port_imports_no_jax():
         "train.checkpoint", "train.trainer", "train.finetune",
         "parallel", "parallel.mesh", "parallel.spatial", "parallel.distributed", "config",
         "ops.int8_conv", "models.wide", "parallel.tensor", "tools.bench_wide",
-        "engine.mfu", "ops.tuning", "tools.sweep_kernel",
+        "engine.mfu", "ops.tuning", "tools.sweep_kernel", "tools.stage_marginals",
     )} <= names
 
 

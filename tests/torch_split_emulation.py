@@ -25,6 +25,9 @@ dropped (the warpgroup that reaches it runs on before the others) each
 fail. Every
 stored activation must fit its byte type (0..127 for the folded
 epilogue, whose kernels drop the min(., 127); 0..255 for the literal).
+Generation 3's diagnostic variants (ops/fused.STAGE_VARIANTS) are
+emulated too: `stages` k < 4 reads channel 0 of stage k's region where
+the kernel's `emit_stage` reads it, and `zero_a1` writes a zero window.
 Tolerance against the plain versions and the Pallas kernels: 0.
 """
 
@@ -122,7 +125,7 @@ def _walk(d, nb, h, w, grid, blk):
             yield f, (rem // tiles_x) * d.th, (rem % tiles_x) * d.tw
 
 
-def _warpgroup(d, lay, wg, tiles, buf, x, out, wts, bounds, zero_tails):
+def _warpgroup(d, lay, wg, tiles, buf, x, out, wts, bounds, zero_tails, stages, zero_a1):
     """One warpgroup of a block over the block's tiles; yields the index of
     each barrier it reaches."""
     nth = 128 * NWG
@@ -167,6 +170,16 @@ def _warpgroup(d, lay, wg, tiles, buf, x, out, wts, bounds, zero_tails):
         addr = dst + (n // 16) * plane[s] * 16 + (rr * p[s + 1] + cc)[keep][:, None] * 16 + n % 16
         buf.write(addr.ravel(), v.ravel(), tag)
 
+    def emit(tag, stage, f, ty0, tx0):  # a build truncated after S1..S3
+        o = mine(th * tw)
+        fr, fc = ty0 + o // tw, tx0 + o % tw
+        keep = (fr < x.shape[1]) & (fc < x.shape[2])
+        halo = (rows[stage] - th) // 2  # the region starts 4, 2, 1 positions before
+        pos = ((o // tw + halo) * p[stage] + o % tw + halo)[keep]
+        a = buf.read((off_b if stage == 2 else off_a) + pos * 16, tag)
+        fr, fc = fr[keep], fc[keep]
+        out[f, fr, fc] = np.clip(x[f, fr, fc] + a, 0, 255)
+
     for k, (f, ty0, tx0) in enumerate(tiles):
         def tag(stage):  # the bytes stage `stage` of this tile writes: 0 the raw window,
             return k * 8 + stage  # 1 the expanded one, 2-4 S1-S3, 5 S4's shares
@@ -175,7 +188,8 @@ def _warpgroup(d, lay, wg, tiles, buf, x, out, wts, bounds, zero_tails):
         i = mine(lay.raw)
         r, c = ty0 - 6 + i // p[0], tx0 - 6 + i % p[0]
         vals = x[f, np.clip(r, 0, x.shape[1] - 1), np.clip(c, 0, x.shape[2] - 1)]
-        buf.write(i, np.where(inside(r, c), vals.astype(np.int64) - 128, 0), tag(0))
+        ok = inside(r, c) & (not zero_a1)
+        buf.write(i, np.where(ok, vals.astype(np.int64) - 128, 0), tag(0))
         yield 0
         # expanded window on S1's pitch: position (r, c), byte 5*i+j = window (r + i, c + j)
         e, j = mine(lay.expanded)[:, None], np.arange(16)[None]
@@ -190,16 +204,25 @@ def _warpgroup(d, lay, wg, tiles, buf, x, out, wts, bounds, zero_tails):
                        w_img, 64)
         store(tag(2), q, acc, 0, ty0, tx0)
         yield 2
+        if stages == 1:
+            emit(tag(2), 1, f, ty0, tx0)
+            continue
         tails(tag(3), off_b, 3, rows[2] * p[2], plane[1])
         q, acc = _gemm(buf, tag(2), off_a, plane[0] * 16, p[1], range(wg, lay.blocks[1], NWG),
                        FU.SPLIT_CHUNKS[0], stage_offs[0], w_img, 48)
         store(tag(3), q, acc, 1, ty0, tx0)
         yield 3
+        if stages == 2:
+            emit(tag(3), 2, f, ty0, tx0)
+            continue
         tails(tag(4), off_a, 3, rows[3] * p[3], plane[2])
         q, acc = _gemm(buf, tag(3), off_b, plane[1] * 16, p[2], range(wg, lay.blocks[2], NWG),
                        FU.SPLIT_CHUNKS[1], stage_offs[1], w_img, 48)
         store(tag(4), q, acc, 2, ty0, tx0)
         yield 4
+        if stages == 3:
+            emit(tag(4), 3, f, ty0, tx0)
+            continue
         # S4, tap-major: acc[p, t] is tap t's share of the output at p -
         # shift(t), stored as int32 [9][share stride] over B
         q, acc = _gemm(buf, tag(4), off_a, plane[2] * 16, p[3], range(wg, lay.blocks[3], NWG),
@@ -238,11 +261,13 @@ def _interval(gens, drop_barrier):
             gens.remove(g)
 
 
-def emulate(x, wts, design, bounds=(), grid=3, zero_tails=True, drop_barrier=None):
+def emulate(x, wts, design, bounds=(), grid=3, zero_tails=True, drop_barrier=None,
+            stages=4, zero_a1=False):
     """The kernel's arithmetic on uint8 frames [B, H, W]: restored uint8
     frames, or the int16 residual for the literal design. `wts` is a
     FusedWeights or LiteralWeights on the CPU; `bounds` (generation 3
-    only) the frame rectangle. The two mutations (no tail zeroing, barrier
+    only) the frame rectangle; `stages` and `zero_a1` (generation 3 only)
+    a diagnostic variant. The two mutations (no tail zeroing, barrier
     `drop_barrier` of every tile dropped) make the emulation raise where
     the kernel would read stale or unwritten bytes."""
     d = design
@@ -255,7 +280,8 @@ def emulate(x, wts, design, bounds=(), grid=3, zero_tails=True, drop_barrier=Non
     for blk in range(min(grid, items)):
         buf = Smem(lay.bytes)
         tiles = list(_walk(d, nb, h, w, min(grid, items), blk))
-        gens = [_warpgroup(d, lay, wg, tiles, buf, x, out, wts, bounds, zero_tails)
+        gens = [_warpgroup(d, lay, wg, tiles, buf, x, out, wts, bounds, zero_tails, stages,
+                           zero_a1)
                 for wg in range(NWG)]
         while gens:
             _interval(gens, drop_barrier)
