@@ -32,10 +32,15 @@ nvcc each, all at once) and then:
        must refuse both;
   8    `cli run --impl kernel2` on phase 4's frames: the pair kernel's path,
        reconstruction equal to phase 4's;
-  9    the matrix-rate probe's seven chain cases bit for bit against their
-       plain version at grid 2, then its tool (`tools/mma_probe`) end to
-       end, which also prints the `mma.sync` issue ceiling (a measurement
-       with no TPU counterpart, so not in the kernels line);
+  9    the matrix-rate probe (its int8 and bf16 chains on `wgmma`, A in
+       registers, a ring of w + s buffers filled by a producer warpgroup;
+       `ptxas` must report 0 spills in each chain instance): the seven
+       chain cases bit for bit against their plain version at grid 2, int8
+       and bf16 at K = N = 128 and the negative-sum seed at one block per
+       SM, then its tool (`tools/mma_probe`) end to end, which also prints
+       the `wgmma` issue rate at each int8 case's N (`tools/wgmma_rate`),
+       the library products' yardstick and the `mma.sync` issue ceiling
+       (measurements with no TPU counterpart, so not in the kernels line);
   10   `tools/bench_kernels` (its literal launches on a line of their
        own), then v3 at the table's tile for 1080p batch 4 (v3t, the
        instance phase 4 launched, which the kernels line's row 1 times),
@@ -329,7 +334,9 @@ def main() -> int:
         literal_residual_reference,
     )
     from qcnn_gpu_tpu_torch.ops.pair import pair_forward, pair_forward_reference
-    from qcnn_gpu_tpu_torch.tools import PEAK_INT8_OPS, bench_kernels, events_ms, mma_probe, smi
+    from qcnn_gpu_tpu_torch.tools import (
+        PEAK_INT8_OPS, bench_kernels, events_ms, graph_timer, mma_probe, smi,
+    )
     from qcnn_gpu_tpu_torch.tools.profile import duplex_host_split, static_camera, trace_stream
 
     wrappers = {
@@ -363,7 +370,7 @@ def main() -> int:
             entry = re.search(r"Compiling entry function '(\w+)'", line)
             if entry:
                 print("    ptxas: entry", entry.group(1))
-            elif "registers" in line or "spill" in line:
+            elif "registers" in line or "spill" in line or "warning" in line:
                 print("    ptxas:", line.strip())
     for name in ("qvrcnn_fused", "qvrcnn_pair", "qvrcnn_literal"):
         log = build.build_info[name]["log"]
@@ -374,6 +381,17 @@ def main() -> int:
         if entries != (len(TILES) if name == KERNEL else 1):
             fail(f"{name}: ptxas compiled {entries} kernels, expected "
                  f"{'one per tile of ' + str(TILES) if name == KERNEL else 'one'}")
+    # the probe's tensor-core chains (6 instances): 0 spills, registers printed
+    chains = [part for part in re.split(r"Compiling entry function", build.build_info[
+        "mma_probe"]["log"]) if "wgmma_chain_kernel" in part.split("\n", 1)[0]]
+    for part in chains:
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", part)
+        regs = re.search(r"Used (\d+) registers", part)
+        if not spills or any(int(n) for n in spills) or not regs:
+            fail(f"ptxas reports spills (or no report) for a probe chain: {part[:300]}")
+    if len(chains) != 6:
+        fail(f"mma_probe: ptxas compiled {len(chains)} chain instances, expected 6")
+    print(f"mma_probe: 0 bytes spilled in its {len(chains)} wgmma chain instances")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     smem = {t: build.library(KERNEL).qvrcnn_smem_bytes(*t) for t in TILES}
     want = {t: SPLIT_BYTES + 160 * 16 + layout(*t).bytes for t in TILES}
@@ -601,6 +619,13 @@ def main() -> int:
         print(f"mma_probe {pname} (K={k}, N={n}) vs plain, grid 2: max_abs_err={err}")
         if err != 0:
             fail(f"mma_probe {pname} differs from its plain version")
+    for kind, seed in (("int8", 0), ("bf16", 0), ("int8", mma_probe.NEGATIVE_SEED)):
+        err = mma_probe.check_case(kind, 128, 128, grid=sms, seed=seed)
+        max_errs["mma_probe"] = max(max_errs["mma_probe"], err)
+        print(f"mma_probe {kind} (K=128, N=128, seed {seed}) vs plain, grid {sms}: "
+              f"max_abs_err={err}")
+        if err != 0:
+            fail(f"mma_probe {kind} seed {seed} differs from its plain version at grid {sms}")
     zero_counts()
     mma_probe.main()
     launches["mma_probe"] = counts()["mma_probe"]
@@ -653,7 +678,9 @@ def main() -> int:
     w_op = mma_probe.kernel_operand(w)
     mma_probe.mma_probe(a, w, w_op)
     mma_probe.mma_probe_reference(a, w)
-    measured["mma_probe"] = (events_ms(lambda: mma_probe.mma_probe(a, w, w_op), 10),
+    # a 0.12 ms launch is near its wrapper's enqueue: device time from graph replays
+    probe_timer = graph_timer(lambda: mma_probe.mma_probe(a, w, w_op), 10)
+    measured["mma_probe"] = (min(probe_timer() for _ in range(3)),
                              events_ms(lambda: mma_probe.mma_probe_reference(a, w), 2))
     print(f"mma_probe int8_i32 grid {sms}: kernel {measured['mma_probe'][0]:.4f} ms, plain "
           f"{measured['mma_probe'][1]:.4f} ms {card}")

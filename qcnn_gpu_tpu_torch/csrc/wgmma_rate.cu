@@ -26,7 +26,7 @@ constexpr int CHUNKS = 16;
 constexpr int PLANE = 1024;                   // A: 64 positions x 16 B per plane
 constexpr int A_REGION = 4096;                // per warpgroup: 2 planes + shifts
 constexpr int B_AT = 4 * A_REGION;            // B: N x 32 bytes
-constexpr int SMEM_BYTES = B_AT + 64 * 32;    // 18,432
+constexpr int SMEM_BYTES = B_AT + 128 * 32;   // 20,480
 
 template <int O, int L>
 __device__ __forceinline__ void rs_n16(int (&d)[L], const uint32_t (&a)[4], uint64_t b) {
@@ -68,8 +68,12 @@ __global__ void wgmma_rate_kernel(int iters, long long* cycles, int* bad) {
         mma_n16<0>(d, at(da, j, 0), db);
       } else if constexpr (N == 48) {
         mma_n48<0>(d, at(da, j, 0), db);
-      } else {
+      } else if constexpr (N == 64) {
         mma_n64<0>(d, at(da, j, 0), db);
+      } else if constexpr (N == 96) {
+        mma_n96<0>(d, at(da, j, 0), db);
+      } else {
+        mma_n128<0>(d, at(da, j, 0), db);
       }
     }
     wg_commit();
@@ -95,7 +99,7 @@ int launch(int wgs, int blocks, int iters, long long* cycles, int* bad, cudaStre
 extern "C" {
 
 // One launch of `blocks` blocks of `wgs` warpgroups for N in {8, 16, 48,
-// 64} (rs = 1: A in registers, N = 16 only). Returns a cudaError_t as int.
+// 64, 96, 128} (rs = 1: A in registers, N = 16 only). Returns a cudaError_t as int.
 int wgmma_rate(int n, int rs, int wgs, int blocks, int iters, void* cycles, void* bad,
                void* stream) {
   auto c = static_cast<long long*>(cycles);
@@ -109,6 +113,8 @@ int wgmma_rate(int n, int rs, int wgs, int blocks, int iters, void* cycles, void
     case 16: return launch<16, false>(wgs, blocks, iters, c, b, st);
     case 48: return launch<48, false>(wgs, blocks, iters, c, b, st);
     case 64: return launch<64, false>(wgs, blocks, iters, c, b, st);
+    case 96: return launch<96, false>(wgs, blocks, iters, c, b, st);
+    case 128: return launch<128, false>(wgs, blocks, iters, c, b, st);
     default: return int(cudaErrorInvalidValue);
   }
 }

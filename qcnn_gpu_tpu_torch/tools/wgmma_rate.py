@@ -28,7 +28,8 @@ from qcnn_gpu_tpu_torch.tools import smi
 
 KERNEL = "wgmma_rate"
 ITERS, CHUNKS = 1000, 16
-CASES = ((8, False), (16, False), (48, False), (64, False), (16, True))  # (N, A in registers)
+CASES = ((8, False), (16, False), (48, False), (64, False), (96, False), (128, False),
+         (16, True))  # (N, A in registers)
 SM_MACS_PER_CLK = 4096
 _ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
 
