@@ -188,12 +188,22 @@ nvcc each, all at once) and then:
        and tile) and at 416x240 batch 1 (24x32), with the counts set to 0
        before and read after: every variant of the tile launched, the
        per-stage split and its JSON line.
+  22   the port's headline measurement: `cli bench` at its defaults (16
+       frames of 1920x1080, generation 3 at the table's tile; the host
+       windows cut to 2 in a 20 s budget), its JSON line, the program
+       exact against the plain reference net on the card before any timing
+       (`exact_vs_xla_on_hw`), generation 3 launched at the table's tiles
+       for 1080p and 416x240 and no other instance; then
+       `tools/bench_layer --layer C2_2` (its library GEMMs launched, exact
+       against the plain convolution) and `tools/bench_matrix` (generations
+       3 and 2 at the six reference geometries and the 1080p batch curve,
+       the reference net's row at 416x240, each exact before timed).
 
 The committed 1080p and class-A golden PSNRs need matplotlib's sample
 data, which the smoke does not assume: `tests/test_torch_golden.py`
 checks them (slow-marked, on the CPU).
 
-Every path (phases 4, 8, 9, 10, each of 11's, 12's, 14's, 15's, 18's and 19's, 20 (d) and 21 (b)) runs with
+Every path (phases 4, 8, 9, 10, each of 11's, 12's, 14's, 15's, 18's and 19's, 20 (d), 21 (b) and each of 22's) runs with
 the launch counts set to 0 just before it and read just after; a kernel of
 the path that was not launched fails the run. Phase 16's paths count
 their library GEMMs the same way (`conv_int8.launches`,
@@ -901,6 +911,9 @@ def main() -> int:
     # ---- phase 21: generation 3 truncated at each stage, and its split
     stage_instances = stage_split(card, models, fws, cases, anchor)
 
+    # ---- phase 22: cli bench, tools/bench_layer and tools/bench_matrix
+    bench_tiles = bench_path(cli, card, zero_counts, counts)
+
     # least time for the same work: operations over the int8 peak, bytes
     # (each input read once, each output written once) over HBM's rate
     net_ops = 2 * MACS_PER_PIXEL * px
@@ -928,6 +941,8 @@ def main() -> int:
                         "ms": {main_tile: mean["v3t"], "24x40": mean["v3"]}}
     # phase 21's diagnostic instances: max_abs_err and launches per tile
     rows[0]["stage_instances"] = stage_instances
+    # phase 22's `cli bench` run: its launches by tile
+    rows[0]["bench"] = bench_tiles
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2494,6 +2509,105 @@ def stage_split(card: str, models, fws, cases, anchor_1080p) -> dict:
         out.setdefault(res["tile"], {"launches": {}})["launches"][f"{w}x{h} b{b}"] = launched
     print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+
+def bench_path(cli, card: str, zero_counts, counts) -> dict:
+    """Phase 22: `cli bench` at its defaults (1080p, batch 16) with
+    BENCH_HOST_WINDOWS=2 and BENCH_HOST_BUDGET_S=20 (any other BENCH_*
+    variable removed), the counts set to 0 before and read after:
+    generation 3 launched at the table's tiles for 1080p batch 16 and
+    416x240 and at no other, the JSON line parsed, `exact_vs_xla_on_hw`
+    true. Then `tools/bench_layer --layer C2_2` (its GEMMs counted) and
+    `tools/bench_matrix` with BENCH_IMPLS=kernel3,kernel2 (generation 3 at
+    the table's tiles and the pair kernel launched) and the reference net's
+    row at 416x240. Returns `cli bench`'s launches by tile."""
+    from qcnn_gpu_tpu_torch.ops import tuning
+    from qcnn_gpu_tpu_torch.ops.fused import fused_forward
+    from qcnn_gpu_tpu_torch.ops.int8_conv import conv_int8
+    from qcnn_gpu_tpu_torch.testing import synth_engine_params
+    from qcnn_gpu_tpu_torch.tools import bench_layer, bench_matrix
+
+    import torch
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+
+    def table_tile(h, w, b):
+        kw = tuning.tuned_kwargs(h=h, w=w, batch=b)
+        return f"{kw.get('th', 24)}x{kw.get('tw', 40)}"
+
+    def launched_tiles():
+        return {f"{th}x{tw}": n for (th, tw), n in fused_forward.tile_launches.items() if n}
+
+    saved = dict(os.environ)
+    for k in [k for k in os.environ if k.startswith("BENCH_")]:
+        del os.environ[k]
+    os.environ.update(BENCH_HOST_WINDOWS="2", BENCH_HOST_BUDGET_S="20")
+    try:
+        # (a) cli bench
+        zero_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["bench", "--device", "cuda"])
+        seconds = time.perf_counter() - t0
+        launched, tiles = counts(), launched_tiles()
+        out = buf.getvalue()
+        print(out, end="")
+        if rc != 0:
+            fail(f"cli bench exited {rc}")
+        res = json.loads(out.splitlines()[-1])
+        d = res["detail"]
+        want = {table_tile(1080, 1920, 16), table_tile(240, 416, 16)}
+        if d["exact_vs_xla_on_hw"] is not True or d["impl"] != "kernel3" \
+                or d["tile"] != table_tile(1080, 1920, 16):
+            fail(f"cli bench: exact {d['exact_vs_xla_on_hw']}, impl {d['impl']}, tile {d['tile']}")
+        if set(tiles) != want or launched["qvrcnn_fused"] <= 0:
+            fail(f"cli bench launched generation 3 at {tiles}, the table's tiles are {want}")
+        print(f"cli bench: {seconds:.1f} s; launches {launched}, generation 3 by tile {tiles}; "
+              f"exact_vs_xla_on_hw {d['exact_vs_xla_on_hw']}; {res['value']} frames/s "
+              f"({d['ms_per_frame_device']} ms/frame device, batch {d['batch']}, tile "
+              f"{d['tile']}); with transfers, {d['pool']} pool: raw best/median "
+              f"{d['fps_full_transport']}/{d['fps_full_median']}, packed "
+              f"{d['fps_packed_transport']} ({d['packed_exact']}), duplex "
+              f"{d['fps_duplex_transport']}, link {d['fps_link_pure']} fps; batch 1 "
+              f"{d['ms_per_frame_device_batch1']} ms device, "
+              f"{d['fps_incl_host_transfers_batch1']} fps; 416x240 "
+              f"{d['ms_per_frame_device_416x240']} ms/frame device {card}")
+
+        # (b) tools/bench_layer
+        conv_int8.launches = 0
+        layer = bench_layer.main(["--layer", "C2_2"])
+        if conv_int8.launches <= 0:
+            fail("tools/bench_layer launched no GEMM")
+        print(f"tools/bench_layer C2_2: GEMM launches={conv_int8.launches}, "
+              f"{layer['us_per_frame']:.3f} us/frame against a {layer['bound_us_per_frame']:.3f} "
+              f"us bound ({layer['bound_by']}) {card}")
+
+        # (c) tools/bench_matrix: generations 3 and 2, then the reference's row
+        os.environ["BENCH_IMPLS"] = "kernel3,kernel2"
+        zero_counts()
+        with tempfile.TemporaryDirectory() as tmp:
+            rep = bench_matrix.main([os.path.join(tmp, "bench_matrix.json")])
+        launched_m, tiles_m = counts(), launched_tiles()
+        want_m = {table_tile(h, w, 8) for h, w, _ in bench_matrix.GEOMETRIES} | {
+            table_tile(1080, 1920, b) for b in bench_matrix.CURVE_BATCHES}
+        rows, n_geos = rep["device_ms_per_frame"], len(bench_matrix.GEOMETRIES)
+        if (set(tiles_m) != want_m or launched_m["qvrcnn_pair"] <= 0
+                or [len(rows[k]) for k in ("kernel3", "kernel2")] != [n_geos, n_geos]
+                or len(rep["batch_scaling_1080p"]) != len(bench_matrix.CURVE_BATCHES)):
+            fail(f"tools/bench_matrix: launches {launched_m}, generation 3 by tile {tiles_m} "
+                 f"(the table's: {want_m}), rows {[len(v) for v in rows.values()]}")
+        print(f"tools/bench_matrix: launches {launched_m}, generation 3 by tile {tiles_m} {card}")
+        ref_rows = bench_matrix.rows_for(synth_engine_params(37), "reference", dev,
+                                         bench_matrix.GEOMETRIES[:1], {})
+        print(f"tools/bench_matrix reference: {json.dumps(ref_rows)} {card}")
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+    return tiles
 
 
 if __name__ == "__main__":

@@ -24,6 +24,7 @@
         --steps 100 --model-out model_q_ft.data
     python -m qcnn_gpu_tpu_torch.cli eval-float --ckpt ckpt --ori o.yuv \
         --anchor a.yuv --height 256 --width 256 --frames 4
+    BENCH_GEOS=all python -m qcnn_gpu_tpu_torch.cli bench --device cuda
 
 Counterpart of `qcnn_gpu_tpu/cli.py` `run` (cmd_run, cli.py:27-65: load
 one static model, restore one sequence, print PSNR before/after and the
@@ -46,8 +47,10 @@ cli.py:132-160: float training from a YUV pair, checkpoint to --ckpt),
 file), `finetune` (cmd_finetune, cli.py:205-244: the shadow-weight
 fine-tune on a table's grid, checkpoint to <ckpt>_qfp, optionally the
 vect_c model) and `eval-float` (cmd_eval_float, cli.py:247-274: the float
-model's PSNR on a sequence, appended to psnr.data / psnr_ori.data), with
-the same flags, text and files, plus `--device`.
+model's PSNR on a sequence, appended to psnr.data / psnr_ori.data) and
+`bench` (cmd_bench, cli.py:349-353: the headline measurement, here the
+port's `bench.py` module, its knobs BENCH_* in the environment, its JSON
+line last), with the same flags, text and files, plus `--device`.
 
 `--impl` picks the program: kernel = generation 3 (the counterpart of the
 JAX `pallas`), kernel1 / kernel2 / kernel3 = the literal-requant /
@@ -85,6 +88,7 @@ import os
 import struct
 import sys
 
+from qcnn_gpu_tpu_torch import bench
 from qcnn_gpu_tpu_torch.config import Config
 from qcnn_gpu_tpu_torch.data import model_files, yuv
 from qcnn_gpu_tpu_torch.data.datasets import PatchDataset, PrefetchLoader
@@ -322,6 +326,13 @@ def cmd_eval_float(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """The headline measurement (the port's bench.py, not the JAX root
+    script): exits 1, having timed nothing, when a program's output
+    differs from the plain reference net."""
+    return bench.main(["--device", args.device])
+
+
 def _add_geometry(p) -> None:
     p.add_argument("--height", type=int, required=True)
     p.add_argument("--width", type=int, required=True)
@@ -464,6 +475,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out-dir", default=".")
     _add_device_flag(p)
     p.set_defaults(fn=cmd_eval_float)
+
+    p = sub.add_parser("bench", help="headline benchmark (knobs: BENCH_* in the environment)")
+    _add_device_flag(p)
+    p.set_defaults(fn=cmd_bench)
     return ap
 
 

@@ -129,6 +129,30 @@ def _auto_generation(p: EngineParams) -> str:
     )
 
 
+def generation(p: EngineParams, impl: str) -> str:
+    """The program that `impl` (one of IMPLS) names for p on one device:
+    "reference", "kernel1", "kernel2" or "kernel3" ("kernel" is generation
+    3; "auto" is `_auto_generation`'s choice, or ValueError)."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "auto":
+        return _auto_generation(p)
+    return "kernel3" if impl == "kernel" else impl
+
+
+def build_program(p: EngineParams, name: str, device, geo, batch: int) -> Callable:
+    """The program `name` (a `generation`) for p on `device`, for frames
+    of `geo` (H, W) in batches of `batch`: generation 3 at the tuned
+    table's tile (`build_tuned`, which gives the program its `tile`),
+    generations 2 and 1 at 24x40, or the reference net."""
+    if name == "reference":
+        return make_forward(p, device=device)
+    if name == "kernel3":
+        return build_tuned(p, device, *geo, batch)
+    forward, kw, carrier = _GENERATIONS[name]
+    return functools.partial(forward, **{kw: carrier.from_engine(p, device)})
+
+
 def _cropped(sink: Callable, n: int) -> Callable:
     """A sink that drops the rows past the first n it is fed (a padded tail)."""
     seen = [0]
@@ -207,10 +231,8 @@ class Engine:
         if qp not in self._names:
             if self.mesh is not None:
                 self._names[qp] = sharded_impl(self._params(qp), self.impl)
-            elif self.impl == "auto":
-                self._names[qp] = _auto_generation(self._params(qp))
             else:
-                self._names[qp] = "kernel3" if self.impl == "kernel" else self.impl
+                self._names[qp] = generation(self._params(qp), self.impl)
         return self._names[qp]
 
     def _program(self, qp: int, geo, batch: int) -> Callable:
@@ -228,13 +250,8 @@ class Engine:
             p = self._params(qp)
             if self.mesh is not None:
                 run = make_sharded_forward(p, self.mesh, impl=name)
-            elif name == "reference":
-                run = make_forward(p, device=self.device)
-            elif name == "kernel3":
-                run = build_tuned(p, self.device, *geo, batch)
             else:
-                forward, kw, carrier = _GENERATIONS[name]
-                run = functools.partial(forward, **{kw: carrier.from_engine(p, self.device)})
+                run = build_program(p, name, self.device, geo, batch)
             self._programs[key] = run
         return self._programs[key]
 

@@ -160,6 +160,7 @@ def test_port_imports_no_jax():
         "parallel", "parallel.mesh", "parallel.spatial", "parallel.distributed", "config",
         "ops.int8_conv", "models.wide", "parallel.tensor", "tools.bench_wide",
         "engine.mfu", "ops.tuning", "tools.sweep_kernel", "tools.stage_marginals",
+        "bench", "tools.bench_layer", "tools.bench_matrix",
     )} <= names
 
 
@@ -181,10 +182,11 @@ PORT_FILES = sorted(glob.glob(os.path.join(REPO, "qcnn_gpu_tpu_torch", "**", "*.
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: os.path.relpath(p, REPO))
 def test_port_file_names_no_jax_package(path):
-    """No import of jax or of qcnn_gpu_tpu (the port's own qcnn_gpu_tpu_torch
-    aside) anywhere in the port or chip_smoke.py."""
+    """No import of jax, of qcnn_gpu_tpu (the port's own qcnn_gpu_tpu_torch
+    aside) or of the JAX package's root `bench` script anywhere in the port
+    or chip_smoke.py."""
     bad = [m for m in _imported_modules(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "qcnn_gpu_tpu")]
+           if m.split(".")[0] in ("jax", "jaxlib", "qcnn_gpu_tpu", "bench")]
     assert not bad, bad
 
 
