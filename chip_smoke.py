@@ -198,12 +198,26 @@ nvcc each, all at once) and then:
        against the plain convolution) and `tools/bench_matrix` (generations
        3 and 2 at the six reference geometries and the 1080p batch curve,
        the reference net's row at 416x240, each exact before timed).
+  23   the golden generators (`tools/make_golden*`) on seeded content that
+       needs no matplotlib or PIL: (a) `make_golden.golden_for_qp` at full
+       width, 12 + 4 frames of 416x240 DCT-degraded as QP37, 200 + 100
+       steps and 50 fine-tune steps of batch 32 (each kind of step timed
+       first), its records written and read back, the served kernel
+       (generation 3, or 1 for a table outside the window) equal to its
+       plain version on the card and `after` equal to its output's PSNR;
+       (b) `make_golden_eval.eval_goldens` with the four committed models
+       on 2 of phase 4's 1080p anchors, whole and in 540x960 windows
+       (bit-equal, generation 3 at the table's tiles), and on 2 frames of
+       416x240 on cuda and on cpu (the same digits); (c) `cli bench`'s
+       raw and +1 windows at its 1080p pool on `measure_stream_fps`,
+       printed beside the medians before the windows' setup left the clock.
 
-The committed 1080p and class-A golden PSNRs need matplotlib's sample
-data, which the smoke does not assume: `tests/test_torch_golden.py`
-checks them (slow-marked, on the CPU).
+The clips the committed goldens were measured on need matplotlib's
+sample data, which the smoke does not assume: `tests/test_torch_golden.py`
+checks the committed golden PSNRs and `tests/test_torch_make_golden.py`
+the generators' files (slow-marked, on the CPU).
 
-Every path (phases 4, 8, 9, 10, each of 11's, 12's, 14's, 15's, 18's and 19's, 20 (d), 21 (b) and each of 22's) runs with
+Every path (phases 4, 8, 9, 10, each of 11's, 12's, 14's, 15's, 18's and 19's, 20 (d), 21 (b) and each of 22's and 23's) runs with
 the launch counts set to 0 just before it and read just after; a kernel of
 the path that was not launched fails the run. Phase 16's paths count
 their library GEMMs the same way (`conv_int8.launches`,
@@ -235,6 +249,10 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "assets", "golden")
+# `cli bench`'s 1080p raw-wire and +1 medians (frames/s) while each window
+# still timed its setup (a new pinned ring, a result array of every frame
+# first touched inside it); NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+PRE_REPAIR_FPS = {"raw": 1311.30, "+1": 1449.49}
 CSRC = "qcnn_gpu_tpu_torch/csrc"
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -914,6 +932,9 @@ def main() -> int:
     # ---- phase 22: cli bench, tools/bench_layer and tools/bench_matrix
     bench_tiles = bench_path(cli, card, zero_counts, counts)
 
+    # ---- phase 23: the golden generators on the card, and the stream's windows
+    golden_launches = golden_path(card, zero_counts, counts, ori[:2], anchor[:2])
+
     # least time for the same work: operations over the int8 peak, bytes
     # (each input read once, each output written once) over HBM's rate
     net_ops = 2 * MACS_PER_PIXEL * px
@@ -943,6 +964,11 @@ def main() -> int:
     rows[0]["stage_instances"] = stage_instances
     # phase 22's `cli bench` run: its launches by tile
     rows[0]["bench"] = bench_tiles
+    # phase 23 (a)'s trained model served (generation 3, or 1 for a table
+    # outside the saturation window) and (b)'s committed models
+    for row in rows:
+        if row["name"] in golden_launches:
+            row["golden"] = golden_launches[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2608,6 +2634,187 @@ def bench_path(cli, card: str, zero_counts, counts) -> dict:
         os.environ.update(saved)
     print(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
     return tiles
+
+
+def golden_path(card: str, zero_counts, counts, ori_1080p, anchor_1080p) -> dict:
+    """Phase 23: the golden generators' functions on content that needs no
+    matplotlib or PIL (`testing.make_clean_frames`, DCT-degraded at q=28 as
+    phase 14's), and the stream's timed windows. (a) `make_golden.golden_for_qp`
+    at full width on the card: 12 training and 4 held-out frames of
+    416x240 as QP37, 200 + 100 steps, 50 fine-tune steps, batch 32 (the
+    script's 4000 + 2000 and 800, cut for the smoke), with each kind of
+    step's ms on the host clock first; its records written and read back
+    equal; the served kernel launched, its output equal to its plain
+    version on the card and `after` equal to that output's PSNR. (b)
+    `make_golden_eval.eval_goldens` with the four committed models on 2 of
+    phase 4's 1920x1080 anchors, whole and in 540x960 windows (bit-equal,
+    generation 3 at the table's tiles), and on 2 of (a)'s 416x240 frames on
+    cuda and on cpu (equal to every digit). (c) `cli bench`'s raw and +1
+    windows at its pool (8 batches of 16 frames of 1920x1080) on
+    `engine/stream.measure_stream_fps`, printed beside `PRE_REPAIR_FPS` (a
+    record, not a bound). Returns (a)'s and (b)'s launches by kernel."""
+    import numpy as np
+    import torch
+
+    from qcnn_gpu_tpu_torch.data import yuv as Y
+    from qcnn_gpu_tpu_torch.data.datasets import PatchDataset
+    from qcnn_gpu_tpu_torch.data.model_files import read_static_qfp_vect_c
+    from qcnn_gpu_tpu_torch.engine.calibrate import solve_table
+    from qcnn_gpu_tpu_torch.engine.runner import Engine, generation, read_model
+    from qcnn_gpu_tpu_torch.ops import tuning
+    from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, fused_forward, fused_forward_reference
+    from qcnn_gpu_tpu_torch.ops.literal import LiteralWeights, literal_forward_reference
+    from qcnn_gpu_tpu_torch.testing import dct_compress, make_clean_frames
+    from qcnn_gpu_tpu_torch import bench
+    from qcnn_gpu_tpu_torch.engine.stream import measure_stream_fps
+    from qcnn_gpu_tpu_torch.testing import synth_engine_params, synth_frames
+    from qcnn_gpu_tpu_torch.tools import make_golden, make_golden_eval
+    from qcnn_gpu_tpu_torch.train.finetune import quant_finetune
+    from qcnn_gpu_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    qp, lr, batch = 37, 1e-3, 32
+    clean = make_clean_frames(16, 240, 416, seed=qp)
+    anchor = dct_compress(clean, q=28.0)
+    tr_c, tr_a, ev_c, ev_a = clean[:12], anchor[:12], clean[12:], anchor[12:]
+    out: dict = {}
+
+    # (a) the step times, then golden_for_qp with the counts zeroed (its
+    # training launches none of the four kernels; its serve does)
+    ds = PatchDataset([(tr_c, tr_a)], patch=64, seed=qp)
+    steps = list(ds.batches(batch, 21))
+    tr = Trainer(TrainConfig(lr=lr, batch_size=batch, log_every=0, seed=qp), device=dev)
+    table = solve_table(tr.params, qp=qp)
+    ms = {}
+    for kind in ("train", "fine-tune"):
+        def run(bs):
+            if kind == "train":
+                tr.fit_batches(bs)
+            else:
+                quant_finetune(tr.params, table.stepw, bs, device=dev, blu_ub=table.blu_adj,
+                               lr=lr * 0.1, log_every=0)
+        run(steps[:1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(steps[1:])
+        torch.cuda.synchronize()
+        ms[kind] = 1e3 * (time.perf_counter() - t0) / (len(steps) - 1)
+    print(f"train step and fine-tune step on cuda, {batch}x64x64 (host clock over "
+          f"{len(steps) - 1} steps after one warm-up, H2D of each batch included): "
+          f"{ms['train']:.4f} / {ms['fine-tune']:.4f} ms/step {card}")
+    zero_counts()
+    t0 = time.perf_counter()
+    ep, psnrs = make_golden.golden_for_qp(
+        tr_c, tr_a, ev_c, ev_a, qp, steps=200, decay_steps=100, finetune_steps=50, lr=lr,
+        batch=batch, wbits=8, per_channel=False, device="cuda")
+    secs = time.perf_counter() - t0
+    launched = counts()
+    served = generation(ep, "auto")
+    kname = {"kernel3": "qvrcnn_fused", "kernel1": "qvrcnn_literal"}[served]
+    if launched[kname] <= 0 or sum(launched.values()) != launched[kname]:
+        fail(f"golden_for_qp served {served}: launches {launched}")
+    out[kname] = launched[kname]
+    with tempfile.TemporaryDirectory() as d:
+        make_golden.write_records(d, {qp: (ep, psnrs)}, "", 8, False)
+        back = read_static_qfp_vect_c(os.path.join(d, f"model_q{qp}.data"))
+        with open(os.path.join(d, "psnr_golden.json")) as fp:
+            row = json.load(fp)["goldens"][str(qp)]
+    same = all(np.array_equal(np.asarray(a), np.asarray(b)) for f in
+               ("weights", "biases", "blu_q", "mul", "shift")
+               for a, b in zip(getattr(back, f), getattr(ep, f)))
+    if not same or row != {k: round(v, 6) for k, v in psnrs.items()}:
+        fail(f"golden_for_qp's records: model read back equal {same}, JSON row {row}")
+    engine = Engine(device=dev)
+    engine.set_model(qp, back)
+    rec = engine.restore(ev_a, qp)
+    x = torch.from_numpy(ev_a).to(dev)
+    if served == "kernel3":
+        want = fused_forward_reference(x, FusedWeights.from_engine(back, dev)).cpu().numpy()
+    else:
+        want = literal_forward_reference(x, LiteralWeights.from_engine(back, dev)).cpu().numpy()
+    if not (rec == want).all() or Y.psnr(want, ev_c) != psnrs["after"]:
+        fail(f"golden_for_qp: served output equal to its plain version "
+             f"{bool((rec == want).all())}, after {psnrs['after']!r} against the plain "
+             f"output's {Y.psnr(want, ev_c)!r}")
+    print(f"make_golden.golden_for_qp on cuda, QP{qp} on 12 + 4 seeded 416x240 frames (DCT "
+          f"q=28), 200 + 100 steps, 50 fine-tune steps, batch {batch}: {secs:.2f} s; served "
+          f"{served}, launches {launched}, output == plain version on the card, model file "
+          f"read back equal; PSNR before {psnrs['before']:.6f} after {psnrs['after']:.6f} "
+          f"({psnrs['after'] - psnrs['before']:+.6f}) {card}")
+
+    # (b) eval_goldens with the committed models: 1080p whole and tiled,
+    # then 416x240 on cuda and on cpu
+    qps = [22, 27, 32, 37]
+    names = {q: generation(read_model(os.path.join(GOLDEN, f"model_q{q}.data")), "auto")
+             for q in qps}
+    if set(names.values()) != {"kernel3"}:
+        fail(f"the committed models' programs: {names}")
+    anchors = {q: anchor_1080p for q in qps}
+    got = {}
+    for label, tile, shape in (("whole", None, (1080, 1920, 2)), ("540x960", (540, 960),
+                                                                   (552, 972, 4))):
+        zero_counts()
+        t0 = time.perf_counter()
+        got[label] = make_golden_eval.eval_goldens(ori_1080p, anchors, GOLDEN, device="cuda",
+                                                   tile=tile)
+        secs = time.perf_counter() - t0
+        kw = tuning.tuned_kwargs(h=shape[0], w=shape[1], batch=shape[2])
+        want_tile = (kw.get("th", 24), kw.get("tw", 40))
+        tiles = {t: n for t, n in fused_forward.tile_launches.items() if n}
+        if set(tiles) != {want_tile} or counts()["qvrcnn_fused"] != tiles[want_tile]:
+            fail(f"eval_goldens {label}: generation 3 by tile {tiles}, the table's {want_tile}")
+        out["qvrcnn_fused"] = out.get("qvrcnn_fused", 0) + tiles[want_tile]
+        print(f"make_golden_eval.eval_goldens on cuda, the 4 committed models, 2 of phase 4's "
+              f"1920x1080 anchors, {label}: {secs:.2f} s, generation 3 launches {tiles}; "
+              + ", ".join(f"QP{q} {g['before']:.6f} -> {g['after']:.6f}"
+                          for q, g in got[label].items()) + f" {card}")
+    engine = Engine(device=dev)
+    engine.load_model(37, os.path.join(GOLDEN, "model_q37.data"))
+    whole = make_golden_eval.restorer(engine, 37)(anchor_1080p)
+    if got["whole"] != got["540x960"] or not (
+            make_golden_eval.restorer(engine, 37, (540, 960))(anchor_1080p) == whole).all():
+        fail("eval_goldens at 1080p: 540x960 windows differ from the whole frame")
+    small = {q: ev_a[:2] for q in qps}
+    by_dev = {}
+    for device in ("cuda", "cpu"):
+        zero_counts()
+        t0 = time.perf_counter()
+        by_dev[device] = make_golden_eval.eval_goldens(ev_c[:2], small, GOLDEN, device=device)
+        by_dev[device + " s"] = time.perf_counter() - t0
+        by_dev[device + " launches"] = counts()["qvrcnn_fused"]
+    if by_dev["cuda"] != by_dev["cpu"] or by_dev["cuda launches"] != len(qps) \
+            or by_dev["cpu launches"]:
+        fail(f"eval_goldens at 416x240: cuda {by_dev['cuda']} against cpu {by_dev['cpu']}; "
+             f"generation 3 launches {by_dev['cuda launches']} / {by_dev['cpu launches']}")
+    out["qvrcnn_fused"] += by_dev["cuda launches"]
+    print(f"make_golden_eval.eval_goldens, 2 seeded 416x240 frames: equal on cuda and cpu to "
+          f"every digit ({by_dev['cuda s']:.2f} s / {by_dev['cpu s']:.2f} s; generation 3 "
+          f"launches {by_dev['cuda launches']} / {by_dev['cpu launches']}); "
+          + ", ".join(f"QP{q} {g['after']!r}" for q, g in by_dev["cuda"].items()) + f" {card}")
+
+    # (c) `cli bench`'s raw and +1 windows on the repaired definition
+    p37 = synth_engine_params(37)
+    geo, bs = (1080, 1920), 16
+    programs = {"raw": bench.build(p37, generation(p37, "auto"), dev, geo, bs),
+                "+1": bench.make_pure_transfer_run()}
+    pool, kind = bench.frame_pool(synth_frames(bs, *geo, seed=1), 8)
+    zero_counts()
+    fps = {}
+    for name, run in programs.items():
+        measure_stream_fps(run, pool[:1], 3, device=dev)  # untimed warm-up
+        fps[name] = [measure_stream_fps(run, pool, 3, device=dev) for _ in range(3)]
+    n_raw = counts()["qvrcnn_fused"]
+    if n_raw <= 0:
+        fail("cli bench's raw window launched no generation 3")
+    print(f"cli bench's windows on measure_stream_fps, {kind} pool of 8x{bs}x1920x1080, 3 "
+          f"windows each, frames/s median (windows): "
+          + ", ".join(f"{n} {np.median(w):.2f} ({', '.join(f'{v:.2f}' for v in w)})"
+                      for n, w in fps.items())
+          + "; before the repair: " + ", ".join(f"{n} {v:.2f}" for n, v in PRE_REPAIR_FPS.items())
+          + f" (PERF.md); fused launches={n_raw} {card}")
+    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 if __name__ == "__main__":

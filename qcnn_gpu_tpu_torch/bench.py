@@ -69,7 +69,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
-import io
 import json
 import os
 import sys
@@ -79,7 +78,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from qcnn_gpu_tpu_torch.data.golden import composite_canvas
+from qcnn_gpu_tpu_torch.data.golden import composite_canvas, jpeg_roundtrip
 from qcnn_gpu_tpu_torch.engine.mfu import mfu_report
 from qcnn_gpu_tpu_torch.engine.packed import (
     duplex_roundtrip_bytes,
@@ -153,21 +152,6 @@ def make_pure_transfer_run() -> Callable:
     streamed through the same loop as the program, measures the link's
     sustained ceiling over the same bytes at the same moment."""
     return lambda x: x + 1
-
-
-def jpeg_roundtrip(frames: np.ndarray, quality: int) -> np.ndarray:
-    """Each frame encoded as JPEG by the installed PIL and decoded: the
-    JAX `jpeg_anchor(frames, quality)` with no tag
-    (qcnn_gpu_tpu/data/golden.py:89-97). Content for the pool only; the
-    port's goldens never encode (data/golden.jpeg_anchor)."""
-    from PIL import Image
-
-    out = []
-    for f in frames:
-        buf = io.BytesIO()
-        Image.fromarray(f, "L").save(buf, format="JPEG", quality=quality)
-        out.append(np.asarray(Image.open(buf).convert("L")))
-    return np.stack(out)
 
 
 def video_like_pool(h: int, w: int, batch: int, n_batches: int) -> list:

@@ -14,8 +14,17 @@ from matplotlib's sample data, and their JPEG anchors.
 `assets/golden/anchors/` and never encodes: where the JAX module falls
 back to encoding with the installed PIL (:92-97), a missing file raises
 FileNotFoundError here, so that a golden never rests on the encoder's
-version. There is no `write_anchor_bytes`. PIL and matplotlib are imported
-inside the functions, as the JAX module imports them.
+version. There is no `write_anchor_bytes`.
+
+`jpeg_roundtrip` is the one place the port encodes: each frame through
+the installed PIL's JPEG encoder and decoder, the JAX `jpeg_anchor(frames,
+quality)` with no tag (:89-97). Two callers use it, for content whose
+bytes the repo does not hold: `tools/make_golden`'s training anchors (the
+JAX script encodes them the same way, make_golden.py:102; its evaluation
+anchors are the committed bytes, decoded) and `bench.py`'s video pool. A
+model trained under another PIL version may differ, as the JAX script's
+would. PIL and matplotlib are imported inside the functions, as the JAX
+module imports them.
 """
 
 from __future__ import annotations
@@ -87,6 +96,19 @@ def jpeg_anchor(frames: np.ndarray, quality: int, tag: str) -> np.ndarray:
     return np.stack(
         [np.asarray(Image.open(io.BytesIO(b.tobytes())).convert("L")) for b in blobs]
     )
+
+
+def jpeg_roundtrip(frames: np.ndarray, quality: int) -> np.ndarray:
+    """Each uint8 frame [N, H, W] encoded as JPEG at `quality` by the
+    installed PIL and decoded (module docstring)."""
+    from PIL import Image
+
+    out = []
+    for f in frames:
+        buf = io.BytesIO()
+        Image.fromarray(f, "L").save(buf, format="JPEG", quality=quality)
+        out.append(np.asarray(Image.open(buf).convert("L")))
+    return np.stack(out)
 
 
 def golden_clip():

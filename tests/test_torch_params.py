@@ -161,6 +161,8 @@ def test_port_imports_no_jax():
         "ops.int8_conv", "models.wide", "parallel.tensor", "tools.bench_wide",
         "engine.mfu", "ops.tuning", "tools.sweep_kernel", "tools.stage_marginals",
         "bench", "tools.bench_layer", "tools.bench_matrix",
+        "tools.make_golden", "tools.make_golden_eval", "tools.make_golden_1080p",
+        "tools.make_golden_classa",
     )} <= names
 
 

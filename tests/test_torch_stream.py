@@ -5,9 +5,13 @@ bytes (tolerance 0)."""
 
 import functools
 import threading
+import time
+import tracemalloc
+import types
 
 import numpy as np
 import pytest
+import torch
 
 from qcnn_gpu_tpu.engine.runner import Engine as JEngine
 from qcnn_gpu_tpu.engine.stream import pipeline_restore as jax_pipeline_restore
@@ -16,6 +20,7 @@ from qcnn_gpu_tpu.models.qvrcnn import make_forward as jax_make_forward
 from qcnn_gpu_tpu.testing import synth_engine_params, synth_frames
 from qcnn_gpu_tpu_torch import cli
 from qcnn_gpu_tpu_torch.engine import packed as P
+from qcnn_gpu_tpu_torch.engine import stream as S
 from qcnn_gpu_tpu_torch.engine.runner import Engine
 from qcnn_gpu_tpu_torch.engine.stream import (
     RawTransport,
@@ -158,6 +163,76 @@ def test_pipeline_restore_tuple_outputs(setup):
 def test_measure_stream_fps_counts_frames(setup):
     _, run, batches, _ = setup
     assert measure_stream_fps(run, batches, 2, device="cpu") > 0
+
+
+def _measure(which, run, batches):
+    if which == "raw":
+        return measure_stream_fps(run, batches, 2, device="cpu")
+    packed, decode = P.make_packed_restore(run)
+    return P.measure_stream_fps_packed(packed, decode, batches, 2, device="cpu")
+
+
+@pytest.mark.parametrize("which", ["raw", "packed"])
+def test_measure_windows_reserve_before_the_clock(setup, monkeypatch, which):
+    """The raw and packed windows build their staging and size its ring to
+    the largest batch (raw: the input's bytes each way; packed: the
+    payload's four 16-byte aligned arrays) before the clock's first read,
+    and build or grow none after it."""
+    _, _, batches, _ = setup
+    batches = batches + [synth_frames(3, 24, 40, seed=9)]  # the largest is not the first
+    run = lambda x: x + 1  # noqa: E731
+    events = []
+    init, reserve = Staging.__init__, Staging.reserve
+
+    def spy_init(self, *a, **k):
+        events.append("staging")
+        init(self, *a, **k)
+
+    def spy_reserve(self, in_bytes, out_bytes):
+        events.append(("reserve", in_bytes, out_bytes))
+        reserve(self, in_bytes, out_bytes)
+
+    clock = types.SimpleNamespace(perf_counter=lambda: events.append("clock") or time.perf_counter())
+    monkeypatch.setattr(Staging, "__init__", spy_init)
+    monkeypatch.setattr(Staging, "reserve", spy_reserve)
+    monkeypatch.setattr(S, "time", clock)
+    monkeypatch.setattr(P, "time", clock)
+    assert _measure(which, run, batches) > 0
+    big = 3 * 24 * 40
+    out = big if which == "raw" else Staging.offsets(P.packed_sizes((3, 24, 40)))[-1]
+    assert out == (big if which == "raw" else 1440 + 4096 + 2048 + 16)
+    assert events == ["staging", ("reserve", big, out), "clock", "clock"]
+
+
+@pytest.mark.parametrize("shape", [(3, 24, 40), (2, 17, 33), (4, 256, 320)])
+def test_packed_sizes_are_the_payload(shape):
+    """The ring the packed window reserves is sized from `packed_sizes`:
+    it names the bytes of each array `_pack_residual` ships, for an odd
+    width and for a batch past the 1024-slot floor of the exception list."""
+    x = torch.from_numpy(synth_frames(*shape, seed=4))
+    got = P._pack_residual(lambda t: (t.to(torch.int16) * 3 // 2).clamp(0, 255).to(torch.uint8),
+                           x, P.CAPACITY_FRAC)
+    assert tuple(t.numel() * t.element_size() for t in got) == P.packed_sizes(shape)
+    assert sum(P.packed_sizes(shape)) == P.packed_roundtrip_bytes(shape)[1]
+
+
+@pytest.mark.parametrize("which", ["raw", "packed"])
+def test_measure_windows_keep_no_output(which):
+    """The windows discard what they restore (the JAX function's
+    `on_output=lambda a: None`, stream.py:114): what the stream allocates on
+    the host at its peak stays far below the frames it restores (a result
+    array of them all was allocated and written inside the window)."""
+    batches = [synth_frames(4, 128, 128, seed=i) for i in range(16)]
+    total = sum(b.nbytes for b in batches)
+    run = lambda x: x + 1  # noqa: E731
+    _measure(which, run, batches[:1])  # imports and first-call allocations
+    tracemalloc.start()
+    try:
+        assert _measure(which, run, batches) > 0
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert peak < total // 4, (peak, total)
 
 
 def test_staging_slots_are_taken_in_turn():
