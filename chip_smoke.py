@@ -22,14 +22,15 @@ nvcc each, all at once) and then:
        the committed QP37 model) and kernel and plain version timed at
        1080p;
   6    the frame-pair (generation 2) and literal-requant
-       (generation 1) kernels, both on generation 3's design, bit for bit
-       against their plain versions on phase 2's cases, odd batches
-       included;
+       (generation 1) kernels, both instances of generation 3's design,
+       bit for bit against their plain versions on phase 2's cases, odd
+       batches included (the frame-bounds cases: generation 1 alone);
   7    the literal kernel on two tables of the QP37 model outside the
        solver's saturation window (C2_2's bound one step up; S1's raised by
        half, whose activations pass 127 on random frames), against its plain
-       version and the literal 6-conv graph; the folded-epilogue weights
-       must refuse both;
+       version, over whole frames and under frame bounds (a row band and a
+       2-D rectangle, as a mesh's blocks pass them), and the literal 6-conv
+       graph; the folded-epilogue weights must refuse both;
   8    `cli run --impl kernel2` on phase 4's frames: the pair kernel's path,
        reconstruction equal to phase 4's;
   9    the matrix-rate probe (its int8 and bf16 chains on `wgmma`, A in
@@ -45,7 +46,13 @@ nvcc each, all at once) and then:
        own), then v3 at the table's tile for 1080p batch 4 (v3t, the
        instance phase 4 launched, which the kernels line's row 1 times),
        v3 at 24x40, v2 and v1 timed at 1080p batch 4 in turns (v3t v3 v2
-       v1 v1 v2 v3 v3t), beside their plain versions;
+       v1 v1 v2 v3 v3t), beside their plain versions; then each tile
+       instance of v3 (all three are instances of the split template,
+       csrc/qvrcnn_split.cuh): this build's `ptxas` registers and spills
+       and its ms/frame in CUDA-graph replays (the kernels line's
+       `instances`), printed beside a record (PARENT_FUSED, not measured
+       by this script) of the parent commit's build as
+       `tools/compare_builds` timed the two in turns in one call;
   11   the streaming engine (engine/stream.py, engine/packed.py):
        phase 4's pipelined raw stream again under
        `torch.cuda.set_sync_debug_mode("error")` (no host sync in the
@@ -90,7 +97,8 @@ nvcc each, all at once) and then:
        demo's byte target (ckpt-1500 and quant_table.data quantize to
        assets/demo/model_q.data);
   15   the mesh path, on virtual meshes over cuda:0 (every shard a launch
-       of generation 3 with its frame bounds): (a) `make_sharded_forward`
+       of generation 3, or of generation 1 for a table outside the window,
+       with its frame bounds): (a) `make_sharded_forward`
        at 1x4, 2x2, 1x8, 1x2x2, 2x2x2 and 4x1 on phase 4's anchors (batch 4, 8
        at 2x2x2), equal to phase 4, each block's kernel output equal to
        its plain version with the same bounds, dp*sp*sw launches a call;
@@ -100,15 +108,19 @@ nvcc each, all at once) and then:
        launches = (warm-up calls + batches) x shards); (c) `cli run
        --config` with a 2x2 mesh; (d) `DistributedRunner` in 2 processes
        on gloo, 4 frames each: both return the global 8, and its psnr is
-       the host PSNR to the last bit; (e) `auto` under a mesh refuses
-       phase 7's table outside the saturation window, naming `--impl
-       reference`, which serves it at 1x2 equal to the unsharded
-       reference net; (f) the unsharded kernel against 1x4, 2x2 and 1x2x2
+       the host PSNR to the last bit; (e) `auto` under a mesh serves
+       phase 7's table outside the saturation window with generation 1
+       under each block's frame bounds at 1x2, 2x2 and 1x2x2 (one literal
+       launch a block a call), equal to the unsharded literal kernel and
+       the reference net, timed in turns against it at 1080p batch 4;
+       `--impl kernel2` under a mesh raises; the sharded reference net
+       serves the table at 1x2; (f) the unsharded kernel against 1x4, 2x2 and 1x2x2
        at 1080p batch 4 in turns (u 1x4 2x2 1x2x2 1x2x2 2x2 1x4 u), with
        the tile overhead each mesh implies, then u 4x1 4x1 u (four
        launches of a frame each, no tile overhead: the launches' cost). Each of
-       phase 15's paths prints its own fused launches; the kernels line's
-       fused launches stay phase 4's run;
+       phase 15's paths prints its own launches; the kernels line's
+       fused launches stay phase 4's run, and its literal row carries
+       (e)'s launches and ms/frame by mesh (`mesh`);
   16   the wide CNN family and tensor parallelism on cuda:0, at full width
        (256 channels, 10 body convs, 832x480), through library GEMMs (the
        JAX package runs XLA convolutions there, no Pallas kernel): (a)
@@ -150,7 +162,9 @@ nvcc each, all at once) and then:
        passing its slice: both ranks return the global batch equal to
        phase 4's recon, generation 3 launched once per position a rank
        owns, the halo bytes each rank sends and receives, ms per call in
-       turns against the same mesh in one process; (b) the TP forwards
+       turns against the same mesh in one process; then phase 7's table
+       outside the window at global 1x2: generation 1, once a rank, both
+       ranks equal to the unsharded literal kernel; (b) the TP forwards
        across the 2 ranks: `make_tp_int8_forward` (QP37, tp 2, 832x480)
        equal to generation 3, `make_tp_wide_forward` (c256 b10, tp 2, one
        frame) equal to phase 16's one-process result; (c) `restore_tiled`
@@ -253,6 +267,16 @@ GOLDEN = os.path.join(HERE, "assets", "golden")
 # still timed its setup (a new pinned ring, a result array of every frame
 # first touched inside it); NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
 PRE_REPAIR_FPS = {"raw": 1311.30, "+1": 1449.49}
+# generation 3 per tile at 1080p batch 4 before it became an instance of
+# csrc/qvrcnn_split.cuh (the parent commit's build) and after, in turns in
+# one call: `python -m qcnn_gpu_tpu_torch.tools.compare_builds
+# <parent's csrc>` (medians of 14 CUDA-graph replays each); PERF.md
+PARENT_FUSED_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+PARENT_FUSED = {
+    (24, 40): {"registers": 107, "ms_frame": 0.5256, "this_ms_frame": 0.5270},
+    (24, 32): {"registers": 106, "ms_frame": 0.5419, "this_ms_frame": 0.5413},
+    (32, 32): {"registers": 106, "ms_frame": 0.5124, "this_ms_frame": 0.5119},
+}
 CSRC = "qcnn_gpu_tpu_torch/csrc"
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -560,31 +584,32 @@ def main() -> int:
               f"({k_ms:.4f} / {p_ms:.4f} ms per call) {card}")
 
     # ---- phase 6: pair and literal kernels == their plain versions on
-    # phase 2's cases (frame bounds are the one-frame kernel's alone; the
-    # batches 1 and 3 give the pair kernel a lone last frame)
+    # phase 2's cases (frame bounds: the literal kernel's too, the pair
+    # kernel takes none; the batches 1 and 3 give the pair kernel a lone
+    # last frame)
     lws = {name: LiteralWeights.from_engine(p, dev) for name, p in models.items()}
     max_errs = {"qvrcnn_fused": max_err, "qvrcnn_pair": 0, "qvrcnn_literal": 0}
     for name, geo, kind, bounds in cases:
-        if bounds:
-            continue
         if kind == "synth":
             x = frames(*geo, seed=sum(geo))
         else:
             x = np.full(geo, 0 if kind == "zeros" else 255, np.uint8)
         xd = torch.from_numpy(x).to(dev)
-        runs = [("qvrcnn_pair", pair_forward, pair_forward_reference, fws),
-                ("qvrcnn_literal", literal_residual, literal_residual_reference, lws)]
+        runs = [("qvrcnn_literal", literal_residual, literal_residual_reference, lws)]
+        if not bounds:
+            runs.insert(0, ("qvrcnn_pair", pair_forward, pair_forward_reference, fws))
         for kname, kernel, plain, wts in runs:
-            got = kernel(xd, wts[name])
+            got = kernel(xd, wts[name], *bounds)
             torch.cuda.synchronize()
-            want = plain(xd, wts[name])
+            want = plain(xd, wts[name], *bounds)
             if got.shape != want.shape or got.dtype != want.dtype:
                 fail(f"{kname} output {got.dtype} {tuple(got.shape)}, expected {want.dtype}")
             err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
             max_errs[kname] = max(max_errs[kname], err)
-            print(f"{kname} vs plain {name} {geo} {kind}: max_abs_err={err}")
+            print(f"{kname} vs plain {name} {geo} {kind} bounds={bounds or 'frame'}: "
+                  f"max_abs_err={err}")
             if err != 0:
-                fail(f"{kname} differs from its plain version: {name} {geo} {kind}")
+                fail(f"{kname} differs from its plain version: {name} {geo} {kind} {bounds}")
 
     # ---- phase 7: tables outside the saturation window: the literal
     # kernel is exact there, the folded-epilogue weights refuse them. C2_2's
@@ -607,20 +632,25 @@ def main() -> int:
         else:
             fail(f"FusedWeights accepted a table outside the saturation window ({label})")
         lw_out = LiteralWeights.from_engine(table, dev)
-        for geo in ((2, 240, 416), (1, H, W)):
+        # whole frames, and under frame bounds as a mesh's blocks pass them:
+        # a row band and a 2-D rectangle
+        for geo, with_bounds in (((2, 240, 416), ((), (7, 235), (3, 231, 11, 412))),
+                                 ((1, H, W), ((), (3, H - 9, 11, W - 4)))):
             if kind == "smooth":
                 x = frames(*geo, seed=5)
             else:
                 x = np.random.default_rng(5).integers(0, 256, geo, dtype=np.uint8)
             xd = torch.from_numpy(x).to(dev)
-            got = literal_residual(xd, lw_out)
-            torch.cuda.synchronize()
-            err = int((got.to(torch.int32) - literal_residual_reference(xd, lw_out)
-                       .to(torch.int32)).abs().max())
-            max_errs["qvrcnn_literal"] = max(max_errs["qvrcnn_literal"], err)
-            print(f"qvrcnn_literal vs plain, {label}, {kind} frames {geo}: max_abs_err={err}")
-            if err != 0:
-                fail(f"literal kernel differs from its plain version ({label})")
+            for bounds in with_bounds:
+                got = literal_residual(xd, lw_out, *bounds)
+                torch.cuda.synchronize()
+                err = int((got.to(torch.int32) - literal_residual_reference(xd, lw_out, *bounds)
+                           .to(torch.int32)).abs().max())
+                max_errs["qvrcnn_literal"] = max(max_errs["qvrcnn_literal"], err)
+                print(f"qvrcnn_literal vs plain, {label}, {kind} frames {geo} bounds="
+                      f"{bounds or 'frame'}: max_abs_err={err}")
+                if err != 0:
+                    fail(f"literal kernel differs from its plain version ({label}, {bounds})")
         x = frames(1, 240, 416, seed=12)
         restored = literal_forward(torch.from_numpy(x).to(dev), lw_out).cpu()
         graph = make_forward(table, device="cpu", merged=False)(torch.from_numpy(x))
@@ -702,6 +732,27 @@ def main() -> int:
     for kname, (k_ms, p_ms) in measured.items():
         print(f"{kname} 1080p batch {b}: kernel {k_ms / b:.4f} ms/frame, plain "
               f"{p_ms / b:.4f} ms/frame {card}")
+    # generation 3's instances of the split template: this build's ptxas
+    # registers and spills and its ms/frame at each tile (CUDA-graph
+    # replays), printed beside PARENT_FUSED, a record of the parent
+    # commit's build (generation 3's own copy of the design) that
+    # tools/compare_builds timed in turns in one call
+    instances = {}
+    ptxas = build.ptxas_instances(build.build_info[KERNEL]["log"])
+    for tile in TILES:
+        run_t = lambda tile=tile: fused_forward(xd, fw37, tile=tile)  # noqa: E731
+        run_t()
+        timer = graph_timer(run_t, 10)
+        ms = sorted(timer() for _ in range(5))[2] / b
+        label, parent = f"{tile[0]}x{tile[1]}", PARENT_FUSED[tile]
+        instances[label] = {**ptxas[tile], "ms_frame": ms}
+        print(f"generation 3 {label}, 1080p batch {b}: this build {ptxas[tile]['registers']} "
+              f"registers, {ptxas[tile]['spill_stores']}/{ptxas[tile]['spill_loads']} bytes "
+              f"spilled, {ms:.4f} ms/frame (CUDA-graph replays, median of 5) {card}; "
+              f"recorded, not measured here (tools/compare_builds, PERF.md section 6): the "
+              f"parent's build {parent['registers']} registers, 0 spilled, in turns with this "
+              f"source in one call parent {parent['ms_frame']:.4f}, this "
+              f"{parent['this_ms_frame']:.4f} ms/frame ({PARENT_FUSED_CARD})")
     a, w = mma_probe.probe_inputs("int8", 128, 128, grid=sms, device=dev)
     w_op = mma_probe.kernel_operand(w)
     mma_probe.mma_probe(a, w, w_op)
@@ -906,9 +957,9 @@ def main() -> int:
     training_path(cli, tmp, card, zero_counts, counts, anchor)
 
     # ---- phase 15: the mesh path (virtual meshes over cuda:0)
-    mesh_path(cli_run, tmp, card, zero_counts, counts, models, fws, max_errs,
-              {"ori": ori, "anchor": anchor, "recon": recon, "static": static,
-               "recon_static": recon_sr, "outside": p_out})
+    literal_mesh = mesh_path(cli_run, tmp, card, zero_counts, counts, models, fws, max_errs,
+                             {"ori": ori, "anchor": anchor, "recon": recon, "static": static,
+                              "recon_static": recon_sr, "outside": p_out})
     tmp_dir.cleanup()
 
     # ---- phase 16: the wide family and tensor parallelism (library GEMMs)
@@ -921,7 +972,7 @@ def main() -> int:
     tiles_18 = tuned_path(cli, card, zero_counts, wrappers, models, fws, cases, max_errs)
 
     # ---- phase 19: meshes across processes, host tiling, the native reader
-    span_path(card, anchor, recon, p37, wide_one)
+    span_path(card, anchor, recon, p37, p_out, wide_one)
 
     # ---- phase 20: (dp, sp) training across processes, its model served
     span_training(card, anchor)
@@ -960,6 +1011,11 @@ def main() -> int:
     # path's instance (row 1's "ms") beside 24x40's
     rows[0]["tiles"] = {"phase 4": main_tiles, "phase 18 (c)": tiles_18,
                         "ms": {main_tile: mean["v3t"], "24x40": mean["v3"]}}
+    # phase 10's instances of the split template: registers, spills, ms/frame
+    rows[0]["instances"] = instances
+    # phase 15 (e): generation 1 under meshes, literal launches a call and
+    # ms/frame at 1080p batch 4 beside unsharded
+    rows[2]["mesh"] = literal_mesh
     # phase 21's diagnostic instances: max_abs_err and launches per tile
     rows[0]["stage_instances"] = stage_instances
     # phase 22's `cli bench` run: its launches by tile
@@ -1022,7 +1078,7 @@ def tiles_per_frame(dims, h: int, w: int, halo: int = 6) -> int:
 
 
 def mesh_path(cli_run, tmp: str, card: str, zero_counts, counts, models, fws, max_errs,
-              data) -> None:
+              data) -> dict:
     """Phase 15: the mesh path on virtual meshes over cuda:0 (every shard a
     launch of generation 3 with its frame bounds). (a) make_sharded_forward
     at 1x4, 2x2, 1x8, 1x2x2, 2x2x2 and 4x1 on phase 4's anchors, each block's
@@ -1030,16 +1086,21 @@ def mesh_path(cli_run, tmp: str, card: str, zero_counts, counts, models, fws, ma
     1x2x2; (b) cli run --mesh 1x4, and --mesh 1x2x2 --transport duplex on
     phase 11's static camera; (c) cli run --config (2x2); (d)
     DistributedRunner in 2 processes on gloo; (e) auto under a mesh on
-    phase 7's table outside the saturation window, and the reference net
-    at 1x2; (f) the unsharded kernel against 1x4, 2x2 and 1x2x2 in turns,
-    then against 4x1 (four launches, no tile overhead). Each path's fused
-    launches are counted around it, printed and checked on its own line."""
+    phase 7's table outside the saturation window: generation 1 at 1x2,
+    2x2 and 1x2x2, equal to the unsharded literal kernel and the reference
+    net, timed in turns against it at 1080p batch 4; kernel2 refused; and
+    the reference net at 1x2; (f) the unsharded kernel against 1x4, 2x2
+    and 1x2x2 in turns, then against 4x1 (four launches, no tile
+    overhead). Each path's launches are counted around it, printed and
+    checked on its own line. Returns (e)'s literal launches and ms/frame
+    by mesh, and the unsharded ms/frame."""
     import numpy as np
     import torch
 
     from qcnn_gpu_tpu_torch.data import yuv as Y
     from qcnn_gpu_tpu_torch.models.qvrcnn import make_forward
     from qcnn_gpu_tpu_torch.ops.fused import fused_forward, fused_forward_reference
+    from qcnn_gpu_tpu_torch.ops.literal import LiteralWeights, literal_forward
     from qcnn_gpu_tpu_torch.parallel.mesh import make_mesh
     from qcnn_gpu_tpu_torch.parallel.spatial import (
         extended_blocks,
@@ -1188,19 +1249,58 @@ def mesh_path(cli_run, tmp: str, card: str, zero_counts, counts, models, fws, ma
             fail(f"DistributedRunner rank {r}: {rec}")
     print(f"DistributedRunner, 2 processes: {time.perf_counter() - t0:.1f} s in all")
 
-    # (e) auto under a mesh refuses a table outside the saturation window;
-    # the reference net serves it, equal to the unsharded reference net
+    # (e) a table outside the saturation window under a mesh: auto serves
+    # it with generation 1 under each block's frame bounds, one literal
+    # launch a block a call, bit-equal to the unsharded literal kernel and
+    # to the reference net; then at 1080p batch 4, equal and timed in
+    # turns against the unsharded literal kernel. --impl kernel2 under a
+    # mesh still raises; the sharded reference net serves the table too
     p_out = data["outside"]
+    lw_out = LiteralWeights.from_engine(p_out, dev)
+    xd = torch.from_numpy(frames(*geo, seed=15)).to(dev)
+    want = literal_forward(xd, lw_out)
+    e_ref = err(want, make_forward(p_out, device=dev)(xd))
+    literal_meshes = {"1x2": (1, 2, 1), "2x2": (2, 2, 1), "1x2x2": (1, 2, 2)}
+    x1080 = torch.from_numpy(anchor[:4]).to(dev)
+    want1080 = literal_forward(x1080, lw_out)
+    runs = {"u": lambda: literal_forward(x1080, lw_out)}
+    literal_mesh = {}
+    for label, dims in literal_meshes.items():
+        run = make_sharded_forward(p_out, mesh_of(dims), impl="auto")
+        zero_counts()
+        got = run(xd)
+        torch.cuda.synchronize()
+        n, n_fused = counts()["qvrcnn_literal"], counts()["qvrcnn_fused"]
+        blocks = dims[0] * dims[1] * dims[2]
+        e_whole, e_1080 = err(got, want), err(run(x1080), want1080)
+        literal_mesh[label] = {"launches": n}
+        print(f"make_sharded_forward auto {label} {geo}, table outside the window: impl="
+              f"{run.impl}, literal launches={n} (blocks {blocks}), fused {n_fused}; vs the "
+              f"unsharded literal kernel max_abs_err={e_whole} ({e_1080} at 4x{H}x{W}); the "
+              f"unsharded literal kernel vs the reference net max_abs_err={e_ref}")
+        if run.impl != "kernel1" or n != blocks or n_fused or e_whole or e_1080 or e_ref:
+            fail(f"generation 1 under mesh {label}: impl {run.impl}, {n} literal launches, "
+                 f"{n_fused} fused, errors {e_whole}/{e_1080}/{e_ref}")
+        runs[label] = lambda run=run: run(x1080)
+    turns = {k: [] for k in runs}
+    for k in list(runs) + list(runs)[::-1]:
+        turns[k].append(events_ms(runs[k], 5))
+    mean = {k: sum(v) / len(v) for k, v in turns.items()}
+    for k, v in turns.items():
+        if k != "u":
+            literal_mesh[k]["ms_frame"] = mean[k] / 4
+        print(f"generation 1, 1080p batch 4, {'unsharded' if k == 'u' else 'mesh ' + k}, in "
+              f"turns: {mean[k] / 4:.4f} ms/frame ({' / '.join(f'{x / 4:.4f}' for x in v)}), "
+              f"{mean[k] / mean['u']:.4f} of unsharded {card}")
+    literal_mesh["unsharded_ms_frame"] = mean["u"] / 4
     try:
-        make_sharded_forward(p_out, mesh_of((1, 2, 1)), impl="auto")
+        make_sharded_forward(p37, mesh_of((1, 2, 1)), impl="kernel2")
     except ValueError as e:
         if "--impl reference" not in str(e):
-            fail(f"auto under a mesh, table outside the window: {e}")
-        print(f"make_sharded_forward auto, 1x2, table outside the window: ValueError "
-              f"{str(e)[:80]}...")
+            fail(f"--impl kernel2 under a mesh: {e}")
+        print(f"make_sharded_forward kernel2, 1x2: ValueError {str(e)[:90]}...")
     else:
-        fail("auto under a mesh accepted a table outside the saturation window")
-    xd = torch.from_numpy(frames(*geo, seed=15)).to(dev)
+        fail("--impl kernel2 under a mesh did not raise")
     e_ref = err(make_sharded_forward(p_out, mesh_of((1, 2, 1)), impl="reference")(xd),
                 make_forward(p_out, device=dev)(xd))
     print(f"make_sharded_forward reference 1x2 {geo}, table outside the window, vs the "
@@ -1235,6 +1335,7 @@ def mesh_path(cli_run, tmp: str, card: str, zero_counts, counts, models, fws, ma
               f"{mean[k] / 4:.4f} ms/frame ({' / '.join(f'{x / 4:.4f}' for x in v)}), "
               f"{mean[k] / mean['u']:.4f} of unsharded; tile overhead {100 * t:+.1f}% {card}")
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return literal_mesh
 
 
 def training_path(cli, tmp: str, card: str, zero_counts, counts, anchor_1080p) -> None:
@@ -1848,15 +1949,17 @@ def tuned_path(cli, card: str, zero_counts, wrappers, models, fws, cases, max_er
 # global meshes whose axes span the 2 ranks, every position on cuda:0;
 # argv: repo, rank, port, work dir
 SPAN_WORKER = textwrap.dedent("""
-    import json, sys, time
+    import dataclasses, json, sys, time
     sys.path.insert(0, sys.argv[1])
     import numpy as np
     import torch
     import torch.distributed as dist
     from qcnn_gpu_tpu_torch.engine.runner import read_model
+    from qcnn_gpu_tpu_torch.models.qvrcnn import _normalized_table
     from qcnn_gpu_tpu_torch.models.wide import synth_wide_params
     from qcnn_gpu_tpu_torch.ops.fused import fused_forward
     from qcnn_gpu_tpu_torch.ops.int8_conv import conv_int8
+    from qcnn_gpu_tpu_torch.ops.literal import literal_residual
     from qcnn_gpu_tpu_torch.parallel.distributed import DistributedRunner, initialize
     from qcnn_gpu_tpu_torch.parallel.mesh import make_global_mesh, make_mesh
     from qcnn_gpu_tpu_torch.parallel.spatial import make_sharded_forward
@@ -1910,6 +2013,21 @@ SPAN_WORKER = textwrap.dedent("""
             "ranks": mesh.ranks.tolist(), "ms": turns,
         }
 
+    # (a) generation 1 across the 2 ranks: a table outside the saturation
+    # window (C2_2's bound one output step up, phase 7's) at global 1x2
+    mul, shift = _normalized_table(p37)
+    blu = list(p37.blu_q)
+    blu[2] = int(blu[2]) + (1 << int(shift[2])) // int(mul[2]) + 1
+    mesh = make_global_mesh(1, 2, [dev])
+    runner = DistributedRunner(dataclasses.replace(p37, blu_q=blu), mesh, impl="auto")
+    x = anchor[mesh.local_slice(rank, anchor.shape)]
+    literal_residual.launches = 0
+    got = runner.restore(x)
+    rec["outside"] = {"equal": bool((got == np.load(f"{d}/recon_out.npy")).all()),
+                      "shape": list(got.shape), "impl": runner.run.impl,
+                      "launches": literal_residual.launches,
+                      "positions": int((mesh.ranks == rank).sum())}
+
     # (b) TP across the 2 ranks: QVRCNN at tp 2, the wide net c256 b10 at tp 2
     mesh = make_global_mesh(1, 2, [dev])
     xt = torch.from_numpy(np.load(f"{d}/tp_x.npy")).to(dev)
@@ -1931,14 +2049,17 @@ SPAN_WORKER = textwrap.dedent("""
 """)
 
 
-def span_path(card: str, anchor_1080p, recon_1080p, p37, wide_one) -> None:
+def span_path(card: str, anchor_1080p, recon_1080p, p37, p_out, wide_one) -> None:
     """Phase 19: (a) DistributedRunner in 2 gloo processes on cuda:0 over
     global meshes 1x2, 1x4, 1x2x2 and 1x1x2 (sp, sw across the ranks),
     QP37 at 1920x1080 batch 4, each rank passing its slice of phase 4's
     anchors: both ranks return the global batch equal to phase 4's recon,
     generation 3 launched once per position a rank owns, the halo bytes
     each rank sends and receives, and the ms per call (host clock) in
-    turns against the same mesh in one process; (b) the TP forwards
+    turns against the same mesh in one process; then phase 7's table
+    outside the saturation window at global 1x2: generation 1 (`auto`),
+    launched once a rank, both ranks equal to the unsharded literal
+    kernel; (b) the TP forwards
     across the 2 ranks: QVRCNN at tp 2 on 2 frames of 832x480 against
     generation 3, the wide net c256 b10 at tp 2 on phase 16's first frame
     against phase 16's one-process result; (c) `restore_tiled` over
@@ -1955,6 +2076,7 @@ def span_path(card: str, anchor_1080p, recon_1080p, p37, wide_one) -> None:
     from qcnn_gpu_tpu_torch.engine.runner import Engine
     from qcnn_gpu_tpu_torch.engine.tiled import restore_tiled
     from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, fused_forward
+    from qcnn_gpu_tpu_torch.ops.literal import LiteralWeights, literal_forward
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1962,6 +2084,9 @@ def span_path(card: str, anchor_1080p, recon_1080p, p37, wide_one) -> None:
         # (a), (b): the two ranks
         np.save(os.path.join(d, "anchor.npy"), anchor_1080p[:4])
         np.save(os.path.join(d, "recon.npy"), recon_1080p[:4])
+        np.save(os.path.join(d, "recon_out.npy"), literal_forward(
+            torch.from_numpy(anchor_1080p[:4]).to(dev), LiteralWeights.from_engine(p_out, dev))
+            .cpu().numpy())
         tp_x = frames(2, 480, 832, seed=19)
         np.save(os.path.join(d, "tp_x.npy"), tp_x)
         np.save(os.path.join(d, "tp_want.npy"), fused_forward(
@@ -2008,6 +2133,15 @@ def span_path(card: str, anchor_1080p, recon_1080p, p37, wide_one) -> None:
             if not m["equal"] or m["shape"] != [4, H, W] or m["launches"] != m["positions"] \
                     or m["impl"] != "kernel3" or m["halo"]["sent"] <= 0:
                 fail(f"DistributedRunner {label} rank {r}: {m}")
+    for r, rec in enumerate(recs):
+        m = rec["outside"]
+        print(f"DistributedRunner 1x2 across 2 ranks, phase 7's table outside the window, rank "
+              f"{r}: impl={m['impl']}, returned {m['shape']}, == the unsharded literal kernel: "
+              f"{m['equal']}; literal launches={m['launches']} ({m['positions']} positions x 1 "
+              f"call)")
+        if not m["equal"] or m["impl"] != "kernel1" or m["launches"] != m["positions"] \
+                or m["shape"] != [4, H, W]:
+            fail(f"DistributedRunner with generation 1 across ranks, rank {r}: {m}")
     for key, what in (("tp_int8", "make_tp_int8_forward QP37 tp 2, 2x480x832, vs generation 3"),
                       ("tp_wide", "make_tp_wide_forward c256 b10 tp 2, 1x480x832, vs phase 16 (a)")):
         for r, rec in enumerate(recs):

@@ -21,6 +21,11 @@
 // S2-S4 multiply them as unsigned bytes (`wgmma ... .s32.u8.s8`); the TPU
 // kernel keeps them in bf16 for the same reason.
 //
+// Under a mesh, each halo-extended block runs under its frame bounds
+// (row_lo..col_hi, as generation 3's): the window reads x - 128 inside
+// them and 0 outside, and every stage's activations are 0 outside them.
+// The whole frame is (0, H, 0, W), what the TPU kernel computes.
+//
 // What bounds it on the H100: tensor-core work, as for generation 3 (the
 // same 56,320 MACs issued per computed position, 0.114 ms per 1080p frame
 // at the int8 peak), in practice the `wgmma` issue (~20 cycles per small-N
@@ -45,37 +50,19 @@ using Lit = split::Cfg<Geo, split::Literal, true, 1, true>;
 static_assert(Geo::BYTES == 160096, "ops/fused.layout(24, 40).bytes");
 static_assert(Lit::SMEM_BYTES == 221536, "weights, 2 int4 vectors a channel, buffers");
 
-__global__ void __launch_bounds__(split::NTHREADS, 1)
-qvrcnn_literal_kernel(const uint8_t* __restrict__ x, int16_t* __restrict__ res,
-                      const int8_t* __restrict__ wsplit, const int* __restrict__ vec, int B,
-                      int H, int W, int b4, int mul4, int shift4) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  split::run<Lit>(smem, x, res, wsplit, vec, B, H, W, b4, mul4, shift4);
-}
-
-int sm_count[split::MAX_DEVICES] = {};  // 0 until the device's first launch
-
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream` (a cudaStream_t) on the current device: one block per
-// SM (at most one per tile). Returns the cudaError_t of the device query,
-// of the one-time attribute call for this device, or of the launch
-// (cudaGetLastError); 0 on success.
+// Launch on `stream` (a cudaStream_t) on the current device, under the
+// frame bounds (clipped to the frame). Returns split::launch's
+// cudaError_t; 0 on success.
 int qvrcnn_literal_residual(const void* x, void* res, const void* wsplit, const void* vec,
-                            int B, int H, int W, int b4, int mul4, int shift4, void* stream) {
-  int sms = 0;
-  const int err = split::prepare(qvrcnn_literal_kernel, Lit::SMEM_BYTES, sm_count, sms);
-  if (err != 0) return err;
-  const int total = B * split::cdiv(H, Geo::TH) * split::cdiv(W, Geo::TW);
-  const int grid = total < sms ? total : sms;
-  qvrcnn_literal_kernel<<<grid, split::NTHREADS, Lit::SMEM_BYTES,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(x), static_cast<int16_t*>(res),
-      static_cast<const int8_t*>(wsplit), static_cast<const int*>(vec), B, H, W, b4, mul4,
-      shift4);
-  return int(cudaGetLastError());
+                            int B, int H, int W, int row_lo, int row_hi, int col_lo, int col_hi,
+                            int b4, int mul4, int shift4, void* stream) {
+  return split::launch<Lit>(x, res, wsplit, vec, B, H, W,
+                            split::Bounds::clipped(row_lo, row_hi, col_lo, col_hi, H, W), b4,
+                            mul4, shift4, stream);
 }
 
 const char* qvrcnn_error_string(int err) {

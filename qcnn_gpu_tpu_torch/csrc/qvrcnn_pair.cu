@@ -40,37 +40,18 @@ using Pair = split::Cfg<Geo, split::Folded, false, 2, false>;
 static_assert(Geo::BYTES == 160096, "ops/fused.layout(24, 40).bytes");
 static_assert(Pair::SMEM_BYTES == 218976, "weights, vectors, 24x40 buffers");
 
-__global__ void __launch_bounds__(split::NTHREADS, 1)
-qvrcnn_pair_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
-                   const int8_t* __restrict__ wsplit, const int* __restrict__ vec, int B, int H,
-                   int W, int b4, int mul4, int shift4) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  split::run<Pair>(smem, x, y, wsplit, vec, B, H, W, b4, mul4, shift4);
-}
-
-int sm_count[split::MAX_DEVICES] = {};  // 0 until the device's first launch
-
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream` (a cudaStream_t) on the current device: one block per
-// SM (at most one per work item). Returns the cudaError_t of the device
-// query, of the one-time attribute call for this device, or of the launch
-// (cudaGetLastError); 0 on success.
+// Launch on `stream` (a cudaStream_t) on the current device, over whole
+// frames (no frame bounds: under a mesh the port runs generations 3 and 1
+// only, as the JAX package runs v3 only). Returns split::launch's
+// cudaError_t; 0 on success.
 int qvrcnn_pair_forward(const void* x, void* y, const void* wsplit, const void* vec, int B,
                         int H, int W, int b4, int mul4, int shift4, void* stream) {
-  int sms = 0;
-  const int err = split::prepare(qvrcnn_pair_kernel, Pair::SMEM_BYTES, sm_count, sms);
-  if (err != 0) return err;
-  const int total = (B + 1) / 2 * split::cdiv(H, Geo::TH) * split::cdiv(W, Geo::TW);
-  const int grid = total < sms ? total : sms;
-  qvrcnn_pair_kernel<<<grid, split::NTHREADS, Pair::SMEM_BYTES,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(x), static_cast<uint8_t*>(y),
-      static_cast<const int8_t*>(wsplit), static_cast<const int*>(vec), B, H, W, b4, mul4,
-      shift4);
-  return int(cudaGetLastError());
+  return split::launch<Pair>(x, y, wsplit, vec, B, H, W, split::Bounds{0, H, 0, W}, b4, mul4,
+                             shift4, stream);
 }
 
 const char* qvrcnn_error_string(int err) {

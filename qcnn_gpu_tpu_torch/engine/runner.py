@@ -33,13 +33,14 @@ predicted residual-delta blocks down, for static-camera content), or
 "auto", which measures the link and the device rate and picks.
 
 With a `mesh` (parallel/mesh.py), every program is the sharded one
-(`parallel/spatial.make_sharded_forward`): generation 3 under per-block
-frame bounds ("kernel", "kernel3", and "auto" on a table inside the
-saturation window) or the reference net; kernel1, kernel2 and "auto" on a
-table outside the window raise (generations 1 and 2 take no frame
-bounds). The engine's device is the mesh's first device, batch_frames a
-multiple of the mesh's dp, and a ragged last batch is edge-replicated up
-to batch_frames and cropped. `RunRecord.mesh` names the mesh.
+(`parallel/spatial.make_sharded_forward`): each block runs generation 3
+("kernel", "kernel3", and "auto" on a table inside the saturation window)
+or generation 1 ("kernel1", and "auto" on a table outside it) under its
+frame bounds, or the reference net; "kernel2" raises (the mesh path runs
+generations 3 and 1 only). The engine's device is the mesh's first
+device, batch_frames a multiple of the mesh's dp, and a ragged last batch
+is edge-replicated up to batch_frames and cropped. `RunRecord.mesh` names
+the mesh.
 
 Two departures from the JAX engine, on purpose. The device is explicit
 and nothing changes it: a CUDA device without CUDA raises, a failed
@@ -79,9 +80,9 @@ from qcnn_gpu_tpu_torch.engine.metrics import MetricsLog, RunRecord
 from qcnn_gpu_tpu_torch.engine.packed import DuplexTransport, make_duplex_restore, warm_batches
 from qcnn_gpu_tpu_torch.engine.stream import Staging, pipeline, pipeline_restore, writer
 from qcnn_gpu_tpu_torch.models.engine_params import EngineParams
-from qcnn_gpu_tpu_torch.models.qvrcnn import MergedParams, make_forward
-from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, window_refusal
-from qcnn_gpu_tpu_torch.ops.literal import LiteralWeights, literal_forward, literal_refusal
+from qcnn_gpu_tpu_torch.models.qvrcnn import make_forward
+from qcnn_gpu_tpu_torch.ops.fused import FusedWeights
+from qcnn_gpu_tpu_torch.ops.literal import LiteralWeights, auto_generation, literal_forward
 from qcnn_gpu_tpu_torch.ops.pair import pair_forward
 from qcnn_gpu_tpu_torch.ops.tuning import build_tuned, geometry_class
 from qcnn_gpu_tpu_torch.parallel.mesh import Mesh
@@ -112,31 +113,14 @@ def read_model(path: str, fmt: str = "vect_c") -> EngineParams:
     return _READERS[fmt](path)
 
 
-def _auto_generation(p: EngineParams) -> str:
-    """`auto`'s choice for a table: generation 3 where its folded epilogue
-    is exact, else generation 1; neither raises ValueError with both
-    reasons."""
-    mp = MergedParams.from_engine(p, "cpu")
-    why3 = window_refusal(mp)
-    if why3 is None:
-        return "kernel3"
-    why1 = literal_refusal(mp)
-    if why1 is None:
-        return "kernel1"
-    raise ValueError(
-        f"no kernel computes this table: generation 3: {why3}; generation 1: {why1}. "
-        "--impl reference computes it (the float64-exact reference net)"
-    )
-
-
 def generation(p: EngineParams, impl: str) -> str:
     """The program that `impl` (one of IMPLS) names for p on one device:
     "reference", "kernel1", "kernel2" or "kernel3" ("kernel" is generation
-    3; "auto" is `_auto_generation`'s choice, or ValueError)."""
+    3; "auto" is `ops/literal.auto_generation`'s choice, or ValueError)."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if impl == "auto":
-        return _auto_generation(p)
+        return auto_generation(p)
     return "kernel3" if impl == "kernel" else impl
 
 
@@ -226,8 +210,9 @@ class Engine:
         """The program that serves QP `qp`: "reference", or the kernel
         generation, "kernel1", "kernel2" or "kernel3". Under "auto" the
         model's table decides; a table that neither generation 3 nor
-        generation 1 computes raises ValueError. Under a mesh, "kernel3"
-        or "reference" (`parallel/spatial.sharded_impl`), or ValueError."""
+        generation 1 computes raises ValueError. Under a mesh, "kernel3",
+        "kernel1" or "reference" (`parallel/spatial.sharded_impl`), or
+        ValueError."""
         if qp not in self._names:
             if self.mesh is not None:
                 self._names[qp] = sharded_impl(self._params(qp), self.impl)
@@ -239,7 +224,8 @@ class Engine:
         """The program for frames of `geo` (H, W) in batches of `batch`.
         Generation 3 comes from the tuned table, so its key adds the
         geometry class and whether the batch is 1; the others' key adds
-        neither, and under a mesh (which keeps 24x40) it adds the mesh."""
+        neither, and under a mesh (whose blocks run at 24x40) it adds the
+        mesh."""
         name = self.program_name(qp)
         key = (qp, str(self.device), name)
         if self.mesh is not None:

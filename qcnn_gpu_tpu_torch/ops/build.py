@@ -6,7 +6,9 @@ covers the sources in `csrc/`, the flags and the preprocessor defines: an
 edited source rebuilds, an unchanged one loads the library already built.
 A source built with defines (generation 3's diagnostic instances) is a
 library of its own, keyed `<name>[<define>,...]`. Only the sources in the
-repository are used. A missing `nvcc` or a failed compile raises; there
+repository are used, except by a measurement that names another checkout's
+`csrc` (`tools/compare_builds`: a library of its own, keyed
+`<name>@<dir>`). A missing `nvcc` or a failed compile raises; there
 is no other path to the kernels.
 """
 
@@ -16,6 +18,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -56,9 +59,9 @@ def nvcc_path() -> str:
     )
 
 
-def _digest(src: str, flags: Tuple[str, ...]) -> str:
+def _digest(src: str, flags: Tuple[str, ...], csrc: str = CSRC) -> str:
     h = hashlib.sha256(" ".join(flags).encode())
-    for path in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
+    for path in sorted(glob.glob(os.path.join(csrc, "*.cu*"))):
         with open(path, "rb") as fp:
             h.update(os.path.basename(path).encode() + fp.read())
     h.update(src.encode())
@@ -71,17 +74,18 @@ def key(name: str, defines: Tuple[str, ...] = ()) -> str:
     return f"{name}[{','.join(defines)}]" if defines else name
 
 
-def library(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+def library(name: str, defines: Tuple[str, ...] = (), csrc: str = CSRC) -> ctypes.CDLL:
     """Compile (if needed) and load csrc/<name>.cu with `defines` passed
-    to nvcc as -D flags; cached per process."""
-    k = key(name, defines)
+    to nvcc as -D flags; cached per process. `csrc` names another
+    directory of sources (keyed `<name>@<csrc>`)."""
+    k = key(name, defines) if csrc == CSRC else f"{key(name, defines)}@{csrc}"
     if k in _loaded:
         return _loaded[k]
-    src = os.path.join(CSRC, f"{name}.cu")
+    src = os.path.join(csrc, f"{name}.cu")
     if not os.path.isfile(src):
         raise FileNotFoundError(f"CUDA source not found: {src}")
     flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-    so = os.path.join(BUILD, f"lib{name}-{_digest(src, flags)}.so")
+    so = os.path.join(BUILD, f"lib{name}-{_digest(src, flags, csrc)}.so")
     if os.path.exists(so):
         build_info[k] = {"seconds": 0.0, "log": "already built: " + so}
     else:
@@ -126,6 +130,24 @@ def check(name: str, err: int, defines: Tuple[str, ...] = ()) -> None:
     if err != 0:
         msg = library(name, defines).qvrcnn_error_string(err).decode()
         raise RuntimeError(f"{key(name, defines)} launch failed: CUDA error {err} ({msg})")
+
+
+def ptxas_instances(log: str) -> Dict[Tuple[int, int], dict]:
+    """nvcc's `-Xptxas -v` report (`build_info[...]["log"]`) per kernel
+    instance of a tiled library: (th, tw), the first two integer template
+    arguments of the entry's mangled name, -> {"registers",
+    "spill_stores", "spill_loads"}."""
+    out = {}
+    for part in re.split(r"Compiling entry function ", log)[1:]:
+        name = part.split("'")[1]
+        tile = re.search(r"Li(\d+)ELi(\d+)E", name)
+        regs = re.search(r"Used (\d+) registers", part)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+        if tile and regs and spills:
+            out[int(tile.group(1)), int(tile.group(2))] = {
+                "registers": int(regs.group(1)),
+                "spill_stores": int(spills.group(1)), "spill_loads": int(spills.group(2))}
+    return out
 
 
 def stream_of(t) -> int:

@@ -374,10 +374,29 @@ def stage_defines(tile) -> Tuple[str, str]:
     return (f"QVRCNN_DIAG_TH={th}", f"QVRCNN_DIAG_TW={tw}")
 
 
-def _bounds(h: int, w: int, row_lo, row_hi, col_lo, col_hi):
+def frame_bounds(h: int, w: int, row_lo, row_hi, col_lo, col_hi):
+    """(row_lo, row_hi, col_lo, col_hi) as ints, a None upper bound the
+    frame's extent (a kernel clips them to the frame)."""
     row_hi = h if row_hi is None else row_hi
     col_hi = w if col_hi is None else col_hi
     return int(row_lo), int(row_hi), int(col_lo), int(col_hi)
+
+
+def frame_mask(x_u8: torch.Tensor, row_lo, row_hi, col_lo, col_hi):
+    """fn(v) -> v with every position outside the frame bounds of frames
+    [B, H, W] set to 0 (v broadcasts over [.., H, W]): the plain versions'
+    SAME padding at the bounds, on every stage's input."""
+    h, w = x_u8.shape[-2:]
+    row_lo, row_hi, col_lo, col_hi = frame_bounds(h, w, row_lo, row_hi, col_lo, col_hi)
+    rows = torch.arange(h, device=x_u8.device)
+    cols = torch.arange(w, device=x_u8.device)
+    inside = (((rows >= row_lo) & (rows < row_hi))[:, None]
+              & ((cols >= col_lo) & (cols < col_hi))[None, :])
+
+    def mask(v):
+        return torch.where(inside, v, torch.zeros((), dtype=v.dtype, device=v.device))
+
+    return mask
 
 
 def check_frames(x_u8: torch.Tensor, weights_device: torch.device) -> None:
@@ -412,15 +431,7 @@ def fused_forward_reference(
     (`check_variant`)."""
     stages, zero_a1 = check_variant(stages, _debug)
     check_frames(x_u8, fw.vec.device)
-    b, h, w = x_u8.shape
-    row_lo, row_hi, col_lo, col_hi = _bounds(h, w, row_lo, row_hi, col_lo, col_hi)
-    rows = torch.arange(h, device=x_u8.device)
-    cols = torch.arange(w, device=x_u8.device)
-    inside = (((rows >= row_lo) & (rows < row_hi))[:, None]
-              & ((cols >= col_lo) & (cols < col_hi))[None, :])
-
-    def mask(v):
-        return torch.where(inside, v, torch.zeros((), dtype=v.dtype, device=v.device))
+    mask = frame_mask(x_u8, row_lo, row_hi, col_lo, col_hi)
 
     def ch(t):  # per-channel vector -> NCHW-broadcastable [C, 1, 1]
         return t.view(-1, 1, 1)
@@ -480,7 +491,7 @@ def fused_forward(
     tiles = b * -(-h // th) * -(-w // tw)
     if tiles > MAX_TILES_PER_LAUNCH:
         raise ValueError(f"at most {MAX_TILES_PER_LAUNCH} tiles per launch, got {tiles}")
-    row_lo, row_hi, col_lo, col_hi = _bounds(h, w, row_lo, row_hi, col_lo, col_hi)
+    row_lo, row_hi, col_lo, col_hi = frame_bounds(h, w, row_lo, row_hi, col_lo, col_hi)
     out = torch.empty_like(x_u8)
     if x_u8.numel() == 0:
         return out

@@ -15,6 +15,14 @@ table the engine accepts, inside the solver's saturation window or not.
 the kernel, as the TPU version does in XLA (pallas_pipeline.py:344-347).
 `literal_residual_reference` is the plain PyTorch version the kernel is
 held against bit for bit.
+
+Both take frame bounds (row_lo, row_hi, col_lo, col_hi), as
+`ops/fused.fused_forward` does: the rectangle of every frame that is
+valid, SAME padding at its edge on every layer (x - 128 is 0 outside it,
+and so is every stage's activation). A block of a mesh passes its own
+(`parallel/spatial.make_sharded_forward`); the default is the whole
+frame, which is what the TPU kernel computes. The residual is computed at
+every position of the frame; the caller keeps what it needs.
 """
 
 from __future__ import annotations
@@ -29,13 +37,21 @@ import torch
 from qcnn_gpu_tpu_torch.models.engine_params import EngineParams
 from qcnn_gpu_tpu_torch.models.qvrcnn import MergedParams, conv_exact
 from qcnn_gpu_tpu_torch.ops import build
-from qcnn_gpu_tpu_torch.ops.fused import TILE_H, TILE_W, check_frames, split_operand
+from qcnn_gpu_tpu_torch.ops.fused import (
+    TILE_H,
+    TILE_W,
+    check_frames,
+    frame_bounds,
+    frame_mask,
+    split_operand,
+    window_refusal,
+)
 from qcnn_gpu_tpu_torch.ops.requant import THRESHOLD, apply_residual_u8, final_residual_i32
 
 KERNEL = "qvrcnn_literal"
 MAX_TILES_PER_LAUNCH = 2**31 - 1  # the kernel counts tiles in an int
 RESIDUAL_CLAMP = 255
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 def literal_refusal(mp: MergedParams) -> Optional[str]:
@@ -57,6 +73,25 @@ def literal_refusal(mp: MergedParams) -> Optional[str]:
                 "the range of the literal kernel's uint8 activations"
             )
     return None
+
+
+def auto_generation(p: EngineParams) -> str:
+    """`--impl auto`'s choice for a table, on one device or under a mesh:
+    "kernel3" where generation 3's folded epilogue is exact
+    (`ops/fused.window_refusal`), else "kernel1" where the literal kernel
+    computes it (`literal_refusal`); neither raises ValueError with both
+    reasons, naming `--impl reference`."""
+    mp = MergedParams.from_engine(p, "cpu")
+    why3 = window_refusal(mp)
+    if why3 is None:
+        return "kernel3"
+    why1 = literal_refusal(mp)
+    if why1 is None:
+        return "kernel1"
+    raise ValueError(
+        f"no kernel computes this table: generation 3: {why3}; generation 1: {why1}. "
+        "--impl reference computes it (the float64-exact reference net)"
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,32 +147,50 @@ class LiteralWeights:
         )
 
 
-def literal_residual_reference(x_u8: torch.Tensor, lw: LiteralWeights) -> torch.Tensor:
+def literal_residual_reference(
+    x_u8: torch.Tensor,
+    lw: LiteralWeights,
+    row_lo: int = 0,
+    row_hi: Optional[int] = None,
+    col_lo: int = 0,
+    col_hi: Optional[int] = None,
+) -> torch.Tensor:
     """Plain PyTorch version of the kernel: uint8 [B, H, W] -> int16
-    residual, clamped to +-255."""
+    residual, clamped to +-255, under the frame bounds (every stage's
+    input masked to them, as `ops/fused.fused_forward_reference`)."""
     check_frames(x_u8, lw.vec.device)
+    mask = frame_mask(x_u8, row_lo, row_hi, col_lo, col_hi)
 
     def ch(t):  # per-channel vector -> NCHW-broadcastable [C, 1, 1] int64
         return t.to(torch.int64).view(-1, 1, 1)
 
-    v = x_u8.to(torch.int64)[:, None] - 128
+    v = mask(x_u8.to(torch.int64) - 128)[:, None]
     for i in range(3):
         u = conv_exact(v, lw.w[i], lw.bias[i])
         kept = ((u + ch(lw.bias_pre[i])) * ch(lw.mul[i])) >> ch(lw.shift[i])
-        v = torch.where(u > ch(lw.blu_q[i]), THRESHOLD, torch.where(u < 0, 0, kept))
+        v = mask(torch.where(u > ch(lw.blu_q[i]), THRESHOLD, torch.where(u < 0, 0, kept)))
     res = final_residual_i32(conv_exact(v, lw.w[3], lw.bias[3]), lw.mul4, lw.shift4)[:, 0]
     return res.clamp(-RESIDUAL_CLAMP, RESIDUAL_CLAMP).to(torch.int16)
 
 
-def literal_residual(x_u8: torch.Tensor, lw: LiteralWeights) -> torch.Tensor:
-    """int16 residual [B, H, W] of uint8 frames [B, H, W].
+def literal_residual(
+    x_u8: torch.Tensor,
+    lw: LiteralWeights,
+    row_lo: int = 0,
+    row_hi: Optional[int] = None,
+    col_lo: int = 0,
+    col_hi: Optional[int] = None,
+) -> torch.Tensor:
+    """int16 residual [B, H, W] of uint8 frames [B, H, W] under the frame
+    bounds (default: the whole frame; clipped to it).
 
     A CUDA tensor goes through the CUDA kernel (one launch on the current
     stream; counted in `literal_residual.launches`) or raises. A CPU tensor
     goes through `literal_residual_reference`."""
     check_frames(x_u8, lw.vec.device)
+    bounds = frame_bounds(*x_u8.shape[1:], row_lo, row_hi, col_lo, col_hi)
     if x_u8.device.type == "cpu":
-        return literal_residual_reference(x_u8, lw)
+        return literal_residual_reference(x_u8, lw, *bounds)
     if x_u8.device.type != "cuda":
         raise ValueError(f"no kernel for device {x_u8.device}")
     b, h, w = x_u8.shape
@@ -152,7 +205,7 @@ def literal_residual(x_u8: torch.Tensor, lw: LiteralWeights) -> torch.Tensor:
         err = fn(
             x_u8.data_ptr(), out.data_ptr(),
             lw.split.data_ptr(), lw.vec.data_ptr(),
-            b, h, w, lw.b4, lw.mul4, lw.shift4, build.stream_of(x_u8),
+            b, h, w, *bounds, lw.b4, lw.mul4, lw.shift4, build.stream_of(x_u8),
         )
     build.check(KERNEL, err)
     literal_residual.launches += 1
@@ -162,11 +215,11 @@ def literal_residual(x_u8: torch.Tensor, lw: LiteralWeights) -> torch.Tensor:
 literal_residual.launches = 0
 
 
-def literal_forward(x_u8: torch.Tensor, lw: LiteralWeights) -> torch.Tensor:
-    """Restored uint8 frames: clip(x + literal_residual(x), 0, 255)."""
-    return apply_residual_u8(x_u8, literal_residual(x_u8, lw))
+def literal_forward(x_u8: torch.Tensor, lw: LiteralWeights, *bounds) -> torch.Tensor:
+    """Restored uint8 frames: clip(x + literal_residual(x, lw, *bounds), 0, 255)."""
+    return apply_residual_u8(x_u8, literal_residual(x_u8, lw, *bounds))
 
 
-def literal_forward_reference(x_u8: torch.Tensor, lw: LiteralWeights) -> torch.Tensor:
+def literal_forward_reference(x_u8: torch.Tensor, lw: LiteralWeights, *bounds) -> torch.Tensor:
     """Plain PyTorch version of `literal_forward`."""
-    return apply_residual_u8(x_u8, literal_residual_reference(x_u8, lw))
+    return apply_residual_u8(x_u8, literal_residual_reference(x_u8, lw, *bounds))

@@ -12,12 +12,15 @@ first device and are put together.
 Why it is exact (spatial.py:11-19): the halo is RECEPTIVE_RADIUS = 6, the
 network's receptive radius, so every kept pixel's receptive field lies in
 the extended block. A block at a frame edge gets filler there, which the
-network must read as SAME padding, on every layer: generation 3 takes
-per-block frame bounds (`ops/fused.fused_forward`'s row_lo..col_hi, the
-JAX kernel's row_bounds/col_bounds), the reference net row/col validity
-masks (`models/qvrcnn.residual_blu_merged`). The filler is the ppro-domain
-zero: 128 in uint8 for the kernel, 0 in the x-128 integers for the
-reference net (spatial.py:43-61).
+network must read as SAME padding, on every layer: generations 3 and 1
+take per-block frame bounds (`ops/fused.fused_forward`'s and
+`ops/literal.literal_residual`'s row_lo..col_hi, the JAX kernel's
+row_bounds/col_bounds), the reference net row/col validity masks
+(`models/qvrcnn.residual_blu_merged`). The filler is the ppro-domain
+zero: 128 in uint8 for the kernels, 0 in the x-128 integers for the
+reference net (spatial.py:43-61). Generation 1 returns the block's int16
+residual, cropped to the kept rows and columns and added to the block
+outside the kernel, as the reference net's is.
 
 The JAX shard_map runs the blocks at once, one per device; here each
 block is launched in turn from the caller's thread, on its device's
@@ -28,16 +31,21 @@ that device, and a neighbour's rows are a slice.
 A mesh may span ranks (`parallel/mesh.make_global_mesh`): each rank then
 holds its slice of the global batch, runs the blocks of the positions it
 owns, and trades the halo rows and columns of a neighbour on another
-rank over the mesh's gloo group as host tensors (uint8 for generation
-3, the x-128 integers for the reference net; the JAX ppermutes over
+rank over the mesh's gloo group as host tensors (uint8 for the
+kernels, the x-128 integers for the reference net; the JAX ppermutes over
 DCN), rows first, so that the corners still come from the
 diagonal neighbour; the frame bounds come from each block's position in
 the global grid.
 
-Departures from the JAX package: a kernel that fails to build or launch
-raises (the JAX `make_sharded_forward` warns and demotes `auto` to the
-sharded XLA graph, spatial.py:121-133); and a mesh axis of extent 1 gets
-no halo (`extended_blocks`), where the JAX program pads it with filler.
+Departures from the JAX package: `auto` serves a table outside the
+solver's saturation window with generation 1 (`ops/literal.auto_generation`,
+as on one device), where the JAX package's `make_sharded_forward(impl=
+"auto")` returns kernel v3, whose folded requant departs from the oracle
+there (spatial.py:106-109; its CPU's XLA graph is exact); a kernel that
+fails to build or launch raises (the JAX package warns and demotes `auto`
+to the sharded XLA graph, spatial.py:121-133); and a mesh axis of extent
+1 gets no halo (`extended_blocks`), where the JAX program pads it with
+filler.
 """
 
 from __future__ import annotations
@@ -52,14 +60,10 @@ import torch.distributed as dist
 from qcnn_gpu_tpu_torch.models.engine_params import EngineParams
 from qcnn_gpu_tpu_torch.models.qvrcnn import MergedParams, residual_blu_merged
 from qcnn_gpu_tpu_torch.models.topology import RECEPTIVE_RADIUS
-from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, fused_forward, window_refusal
+from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, fused_forward
+from qcnn_gpu_tpu_torch.ops.literal import LiteralWeights, auto_generation, literal_residual
 from qcnn_gpu_tpu_torch.ops.requant import apply_residual_u8
 from qcnn_gpu_tpu_torch.parallel.mesh import Mesh
-
-NO_BOUNDS = (
-    "generations 1 and 2 take no frame bounds yet (ROADMAP Queue 2 item 1), so "
-    "they cannot serve under a mesh"
-)
 
 
 def _exchange(blocks: np.ndarray, dim: int, halo: int, fill: int,
@@ -227,23 +231,23 @@ def extended_blocks(blocks: np.ndarray, halo: int, fill: int,
 
 def sharded_impl(p: EngineParams, impl: str) -> str:
     """The program `make_sharded_forward` runs for `impl`: "kernel3"
-    (generation 3 under frame bounds; "kernel" and "auto" on a table inside
-    the saturation window) or "reference". Raises ValueError for kernel1
-    and kernel2, and for "auto" on a table outside the window."""
-    if impl in ("kernel", "kernel3", "reference"):
-        return "reference" if impl == "reference" else "kernel3"
-    if impl in ("kernel1", "kernel2"):
-        raise ValueError(f"--impl {impl} under a mesh: {NO_BOUNDS}; --impl reference "
-                         "computes any table there")
+    (generation 3: "kernel", "kernel3", and "auto" on a table inside the
+    saturation window), "kernel1" (generation 1: "kernel1", and "auto" on
+    a table outside it that generation 1 computes), each under per-block
+    frame bounds, or "reference". Raises ValueError for "kernel2", and for
+    "auto" on a table that neither generation computes (naming `--impl
+    reference`), as `ops/literal.auto_generation` does on one device."""
+    if impl in ("kernel", "kernel3"):
+        return "kernel3"
+    if impl in ("kernel1", "reference"):
+        return impl
+    if impl == "kernel2":
+        raise ValueError("--impl kernel2 under a mesh: the mesh path runs generations 3 and 1 "
+                         "only, each block under its frame bounds (the JAX package's mesh path "
+                         "has no frame-pair kernel); --impl reference computes any table there")
     if impl != "auto":
         raise ValueError(f"unknown impl {impl!r} under a mesh")
-    why = window_refusal(MergedParams.from_engine(p, "cpu"))
-    if why is not None:
-        raise ValueError(
-            f"--impl auto under a mesh serves generation 3 only, which cannot compute "
-            f"this table: {why}; {NO_BOUNDS}. --impl reference computes it"
-        )
-    return "kernel3"
+    return auto_generation(p)
 
 
 def make_sharded_forward(
@@ -264,11 +268,14 @@ def make_sharded_forward(
 
     impl: "kernel3" ("kernel", and "auto" on a table inside the saturation
     window) launches generation 3, `fused_forward`, once per block, with
-    the block's frame bounds: a launch per position the rank owns (dp *
-    sp * sw on one process) a call (on a CPU mesh, its plain version).
-    "reference" runs the float64-exact reference net with validity masks.
-    The others raise (`sharded_impl`). The weights are placed once on each
-    distinct device of this rank's positions. The callable carries
+    the block's frame bounds; "kernel1" ("auto" on a table outside the
+    window) launches generation 1, `literal_residual`, the same way, and
+    adds the residual's kept rows and columns to the block. Either is a
+    launch per position the rank owns (dp * sp * sw on one process) a
+    call (on a CPU mesh, its plain version). "reference" runs the
+    float64-exact reference net with validity masks. The others raise
+    (`sharded_impl`). The weights are placed once on each distinct device
+    of this rank's positions. The callable carries
     `.mesh`, `.impl` and `.halo_bytes` (bytes sent and received across
     ranks, summed over its calls)."""
     chosen = sharded_impl(p, impl)
@@ -277,7 +284,8 @@ def make_sharded_forward(
     sub = tuple(o.stop - o.start for o in own)
     rows = grid[1] > 1
     cols = len(grid) == 3 and grid[2] > 1
-    carrier = FusedWeights if chosen == "kernel3" else MergedParams
+    carrier = {"kernel3": FusedWeights, "kernel1": LiteralWeights,
+               "reference": MergedParams}[chosen]
     weights = {d: carrier.from_engine(p, d) for d in mesh.local_devices()}
     stats = {"sent": 0, "received": 0}
 
@@ -293,11 +301,17 @@ def make_sharded_forward(
                              f"needs >= {halo} rows (and columns) along a split axis")
         blocks = split_blocks(x, mesh)
         out = np.full(grid, None, dtype=object)
-        if chosen == "kernel3":
+        if chosen != "reference":
             xe, bounds = extended_blocks(blocks, halo, 128, mesh, stats)
             for idx in np.ndindex(grid):
-                if xe[idx] is not None:
-                    out[idx] = fused_forward(xe[idx], weights[xe[idx].device], *bounds[idx])[kept]
+                e = xe[idx]
+                if e is None:
+                    continue
+                if chosen == "kernel3":
+                    out[idx] = fused_forward(e, weights[e.device], *bounds[idx])[kept]
+                else:
+                    res = literal_residual(e, weights[e.device], *bounds[idx])
+                    out[idx] = apply_residual_u8(blocks[idx], res[kept])
         else:
             ppro = np.full(grid, None, dtype=object)
             for idx in np.ndindex(grid):

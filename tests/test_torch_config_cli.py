@@ -147,17 +147,27 @@ def test_cli_run_config_overrides_flags(sequence):
 
 
 def test_cli_run_mesh_refusals(sequence, capsys):
-    """kernel1 under a mesh exits 1 naming --impl reference; a mesh spec of
-    four dims exits with the JAX command's message."""
+    """kernel2 under a mesh exits 1 naming --impl reference (the mesh path
+    runs generations 3 and 1 only); a mesh spec of four dims exits with the
+    JAX command's message."""
     rc = cli.main(["run", "--ori", sequence["ori"], "--anchor", sequence["anchor"], "--height",
                    str(H), "--width", str(W), "--model", sequence["model"], "--qp", "37",
-                   "--device", "cpu", "--impl", "kernel1", "--mesh", "1x2",
+                   "--device", "cpu", "--impl", "kernel2", "--mesh", "1x2",
                    "--out-dir", str(sequence["dir"] / "refused")])
     assert rc == 1 and "--impl reference" in capsys.readouterr().err
     with pytest.raises(SystemExit, match="expected DPxSP\\[xSW\\] with 1-3 'x'-separated dims"):
         cli.main(["run", "--ori", sequence["ori"], "--anchor", sequence["anchor"], "--height",
                   str(H), "--width", str(W), "--model", sequence["model"], "--qp", "37",
                   "--device", "cpu", "--mesh", "1x2x2x2"])
+
+
+def test_cli_run_mesh_kernel1(sequence):
+    """--impl kernel1 under a mesh: generation 1 per block under its frame
+    bounds, the ragged tail padded and cropped, equal to the unsharded run."""
+    want, _ = _run(sequence, "unsharded-k1")
+    got, rec = _run(sequence, "mesh-k1", "--impl", "kernel1", "--mesh", "2x2")
+    assert (got == want).all()
+    assert rec["mesh"] == "2x2" and rec["impl"] == "kernel1"
 
 
 # (family, label, the format its file starts in)

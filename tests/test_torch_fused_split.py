@@ -1,5 +1,6 @@
 """Generation 3's operand layout (qcnn_gpu_tpu_torch/ops/fused.py and
-csrc/qvrcnn_fused.cu), emulated in numpy int64 on the CPU.
+csrc/qvrcnn_fused.cu, instances of the template csrc/qvrcnn_split.cuh),
+emulated in numpy int64 on the CPU.
 
 `emulate` (tests/torch_split_emulation.py) runs the kernel's arithmetic
 as the kernel lays it out: a persistent block walking its tiles with one
@@ -100,16 +101,19 @@ def test_split_operand_equals_fused_weights_split():
 def test_kernel_source_mirrors_the_layout():
     """csrc/qvrcnn_fused.cu states, in a static_assert for every compiled
     tile instance, the regions it derives (blocks, expanded positions,
-    planes, buffers, shared memory), and its weight-image constants; each
-    equals the Python layout the emulation runs. The instances are
-    ops/fused.TILES, listed once in the source (QVRCNN_TILES), 24x40
-    first."""
+    planes, buffers, shared memory), and the template it instantiates
+    (csrc/qvrcnn_split.cuh) its weight-image constants; each equals the
+    Python layout the emulation runs. The instances are ops/fused.TILES,
+    listed once in the source (QVRCNN_TILES), 24x40 first, each the
+    template's Cfg with the folded epilogue, signed activations, one frame
+    per work item and uint8 frames out (the emulation's GEN3)."""
     csrc = os.path.join(REPO, "qcnn_gpu_tpu_torch", "csrc")
     src = open(os.path.join(csrc, "qvrcnn_fused.cu")).read()
-    got = dict(re.findall(r"static_assert\((\w+) == (\d+)", src))
+    split = open(os.path.join(csrc, "qvrcnn_split.cuh")).read()
+    got = dict(re.findall(r"static_assert\((\w+) == (\d+)", split))
     want = {"W_BYTES": FU.SPLIT_BYTES, "N_S2": len(FU.SPLIT_CHUNKS[0]),
             "N_S3": len(FU.SPLIT_CHUNKS[1]), "N_S4": len(FU.SPLIT_CHUNKS[2])}
-    assert {k: int(v) for k, v in got.items()} == want
+    assert {k: int(got[k]) for k in want} == want
     regions = {(int(th), int(tw)): tuple(int(v) for v in vals.split(", ")) for th, tw, vals in
                re.findall(r"static_assert\(regions<(\d+), (\d+)>\(([\d, ]+)\), \"\"\)", src)}
     tiles = re.search(r"#define QVRCNN_TILES\(X\) (.*)", src).group(1)
@@ -120,6 +124,9 @@ def test_kernel_source_mirrors_the_layout():
         assert got_t == (*lay.blocks, lay.expanded, *lay.plane, lay.bytes,
                          FU.SPLIT_BYTES + 160 * 16 + lay.bytes), (th, tw)
     assert regions[TH, TW][:8] == (*FU.BLOCKS, FU.EXPANDED, *PL)
+    cfg = re.search(r"using Gen3 = split::Cfg<split::Geometry<TH, TW>, split::(\w+), (\w+), (\d+), "
+                    r"(\w+), STAGES, ZERO_A1>;", src).groups()
+    assert cfg == ("Folded", "false", str(SE.GEN3.frames), "false") and not SE.GEN3.literal
 
 
 @pytest.mark.parametrize("model", [22, 37, "int4"])
@@ -142,10 +149,22 @@ def test_emulation_matches_plain_and_pallas(model, n, h, w):
     assert (got == np.asarray(build_pallas_forward3(jp, th=8, interpret=True)(x))).all()
 
 
-@pytest.mark.parametrize("bounds", [(3, 33, 5, 47), (0, 30, 9, 53)])
-def test_emulation_with_frame_bounds(bounds):
-    fw = FU.FusedWeights.from_engine(_params(22), "cpu")
+@pytest.mark.parametrize("bounds,design", [((3, 33, 5, 47), "gen3"), ((0, 30, 9, 53), "gen3"),
+                                           ((3, 33, 5, 47), "gen1")],
+                         ids=["bounds0", "bounds1", "gen1"])
+def test_emulation_with_frame_bounds(bounds, design):
+    """Every instance of the template takes frame bounds: generation 3's
+    restored frames and generation 1's int16 residual equal their plain
+    versions under the same bounds."""
     x = _frames(2, 37, 53, seed=5)
+    if design == "gen1":
+        from qcnn_gpu_tpu_torch.ops import literal as LI
+
+        lw = LI.LiteralWeights.from_engine(_params(22), "cpu")
+        want = LI.literal_residual_reference(torch.from_numpy(x), lw, *bounds).numpy()
+        assert (SE.emulate(x, lw, SE.GEN1, bounds) == want).all()
+        return
+    fw = FU.FusedWeights.from_engine(_params(22), "cpu")
     want = FU.fused_forward_reference(torch.from_numpy(x), fw, *bounds).numpy()
     assert (emulate(x, fw, bounds) == want).all()
 

@@ -8,7 +8,9 @@ JAX function's and the oracle's, for synthetic QP22/QP37 tables, the
 committed per-channel INT4 model and tables outside the solver's
 saturation window, which the folded-epilogue weights refuse. On a GPU
 (skipped here): the CUDA kernel equal to the plain version. Tolerance: 0
-everywhere (integer arithmetic).
+everywhere (integer arithmetic). Under frame bounds (a block of a mesh)
+the plain version equals generation 3's plain version on a table inside
+the window, and the CUDA kernel equals the plain version.
 
 No JAX module is imported at the top of this file, so that the CUDA test
 also runs on a GPU machine without jax:
@@ -25,7 +27,8 @@ from qcnn_gpu_tpu_torch.data.model_files import read_static_qfp_pc
 from qcnn_gpu_tpu_torch.models import qvrcnn as Q
 from qcnn_gpu_tpu_torch.models.engine_params import EngineParams
 from qcnn_gpu_tpu_torch.ops import literal as LI
-from qcnn_gpu_tpu_torch.ops.fused import FusedWeights
+from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, fused_forward_reference
+from qcnn_gpu_tpu_torch.ops.requant import apply_residual_u8
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INT4 = os.path.join(REPO, "assets", "golden", "model_q22_int4.data")
@@ -171,6 +174,23 @@ def test_cpu_tensor_takes_the_plain_version():
         LI.literal_residual(x.to(torch.int32), lw)
 
 
+@pytest.mark.parametrize("bounds", [(3, 33, 5, 47), (-2, 30, 9, 60)])
+def test_plain_under_bounds_matches_fused_plain(bounds):
+    """On a table inside the saturation window the literal chain and the
+    folded epilogue agree, under frame bounds too: restored frames equal at
+    every pixel, bounds past the frame clipped. The wrapper hands a CPU
+    tensor's bounds to its plain version."""
+    p = EngineParams.from_arrays(_synth(37))
+    lw = LI.LiteralWeights.from_engine(p, "cpu")
+    x = torch.from_numpy(_frames(2, 37, 53, seed=4))
+    res = LI.literal_residual_reference(x, lw, *bounds)
+    want = fused_forward_reference(x, FusedWeights.from_engine(p, "cpu"), *bounds)
+    assert torch.equal(apply_residual_u8(x, res), want)
+    assert torch.equal(LI.literal_forward(x, lw, *bounds), want)
+    assert torch.equal(LI.literal_residual(x, lw, *bounds), res)
+    assert not torch.equal(res, LI.literal_residual_reference(x, lw))
+
+
 def _off_window_tables(p):
     """Two tables outside the saturation window, from the port's own
     containers (no JAX): C2_2's bound one output step up, and S1's bound
@@ -186,7 +206,8 @@ def _off_window_tables(p):
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
     """The committed INT4 model and two tables outside the window, odd
-    batch included."""
+    batch included, over whole frames and under frame bounds (a row band
+    and a rectangle, as the blocks of a mesh pass them)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     p = EngineParams.from_arrays(read_static_qfp_pc(INT4))
@@ -195,6 +216,8 @@ def test_cuda_kernel_matches_plain():
         lw = LI.LiteralWeights.from_engine(table, "cuda")
         for shape in ((1, 37, 53), (2, 13, 245), (3, 40, 50)):
             x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).cuda()
-            got = LI.literal_residual(x, lw)
-            torch.cuda.synchronize()
-            assert torch.equal(got, LI.literal_residual_reference(x, lw)), shape
+            for bounds in ((), (6, shape[1] - 2), (2, shape[1] - 3, 5, shape[2] - 6)):
+                got = LI.literal_residual(x, lw, *bounds)
+                torch.cuda.synchronize()
+                want = LI.literal_residual_reference(x, lw, *bounds)
+                assert torch.equal(got, want), (shape, bounds)

@@ -109,7 +109,8 @@ def test_literal_weights_hold_the_split_image():
 def test_literal_source_mirrors_the_layout():
     """csrc/qvrcnn_literal.cu instantiates the template as the emulation's
     GEN1 design, and its static_asserts equal the Python layout: the tile's
-    buffers and the shared memory (weights, two int4 per channel, buffers)."""
+    buffers and the shared memory (weights, two int4 per channel, buffers).
+    Its C entry takes frame bounds."""
     src = open(os.path.join(CSRC, "qvrcnn_literal.cu")).read()
     th, tw = map(int, re.search(r"Geometry<(\d+), (\d+)>", src).groups())
     cfg = re.search(r"split::Cfg<Geo, split::(\w+), (\w+), (\d+), (\w+)>", src).groups()
@@ -121,3 +122,12 @@ def test_literal_source_mirrors_the_layout():
     assert got == {"Geo::BYTES": bytes_,
                    "Lit::SMEM_BYTES": FU.SPLIT_BYTES + 160 * 2 * 16 + bytes_}
     assert got["Lit::SMEM_BYTES"] == 221536 <= 232448
+    # the entry takes frame bounds after H, W, as the wrapper passes them
+    # (ops/literal._ARGTYPES), and hands them to the template clipped
+    entry = src[src.index("int qvrcnn_literal_residual("):]
+    params = [a.split()[-1].lstrip("*") for a in entry[entry.index("(") + 1:entry.index(")")]
+              .split(",")]
+    assert params == ["x", "res", "wsplit", "vec", "B", "H", "W", "row_lo", "row_hi", "col_lo",
+                      "col_hi", "b4", "mul4", "shift4", "stream"]
+    assert len(params) == len(LI._ARGTYPES)
+    assert "split::Bounds::clipped(row_lo, row_hi, col_lo, col_hi, H, W)" in entry

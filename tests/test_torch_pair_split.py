@@ -101,6 +101,10 @@ def test_pair_source_mirrors_the_layout():
     assert got == {"Geo::BYTES": bytes_,
                    "Pair::SMEM_BYTES": FU.SPLIT_BYTES + 160 * 16 + bytes_}  # one int4 a channel
     assert got["Pair::SMEM_BYTES"] == 218976 <= SMEM_LIMIT
+    # the pair kernel runs over whole frames: no frame bounds in its entry
+    entry = src[src.index("int qvrcnn_pair_forward("):]
+    assert "split::launch<Pair>(" in entry and "split::Bounds{0, H, 0, W}" in entry
+    assert "row_lo" not in entry.split(")")[0]
 
 
 def _issued_macs_per_pixel(lay):
@@ -131,18 +135,24 @@ def test_pair_tiles_fit_shared_memory():
 
 
 def test_split_kernels_issue_wgmma_only():
-    """Generations 2 and 1 run on the split template and `wgmma` (the
-    literal one `.u8.s8` for S2-S4): no `mma.sync` outside the rate probe,
-    and no stage header of the first design."""
+    """Generations 3, 2 and 1 are instances of the split template on
+    `wgmma` (the literal one `.u8.s8` for S2-S4): no `mma.sync` outside the
+    rate probe, no stage header of the first design, and no source keeps
+    its own copy of the template's stages, epilogue, tile walk or window
+    load: each launches `split::launch<...>`."""
     split = open(os.path.join(CSRC, "qvrcnn_split.cuh")).read()
     header = open(os.path.join(CSRC, "hopper_wgmma.cuh")).read()
     for name in ("qvrcnn_pair.cu", "qvrcnn_literal.cu", "qvrcnn_fused.cu"):
         src = open(os.path.join(CSRC, name)).read()
         assert "mma.sync.aligned" not in src
-        # generation 3 takes only its tile's regions and launch bookkeeping
-        # from the template header; its stages are its own
         assert '#include "qvrcnn_split.cuh"' in src
-        assert ("split::run<" in src) == (name != "qvrcnn_fused.cu")
+        assert "split::launch<" in src
+        for own in ("__global__", "store_stage", "zero_tails", "stage1", "stage4", "load_window",
+                    "emit_stage", "requant(", "mma_n", "<<<"):
+            assert own not in src, (name, own)
+    for shared in ("__global__", "store_stage", "zero_tails", "stage1", "stage4", "load_window",
+                   "emit_stage", "struct Bounds", "int launch("):
+        assert shared in split, shared
     assert "mma.sync.aligned" not in split and '#include "hopper_wgmma.cuh"' in split
     for n in (16, 48):
         assert f"wgmma.mma_async.sync.aligned.m64n{n}k32.s32.u8.s8" in header

@@ -2,8 +2,8 @@
 JAX package's on its 8-device virtual CPU mesh, and against the port's
 unsharded restore. Every comparison is bit-exact (tolerance 0); PSNRs are
 equal to the last bit. The port's meshes here are virtual CPU meshes
-(`[torch.device("cpu")] * 8`), where generation 3 runs its plain version
-with the same frame bounds as on the card."""
+(`[torch.device("cpu")] * 8`), where generations 3 and 1 run their plain
+versions with the same frame bounds as on the card."""
 
 import dataclasses
 import functools
@@ -24,6 +24,7 @@ from qcnn_gpu_tpu_torch.engine.runner import Engine
 from qcnn_gpu_tpu_torch.models.engine_params import EngineParams
 from qcnn_gpu_tpu_torch.models.qvrcnn import MergedParams, _normalized_table, make_forward
 from qcnn_gpu_tpu_torch.ops.fused import window_refusal
+from qcnn_gpu_tpu_torch.ops.literal import LiteralWeights, literal_forward_reference
 from qcnn_gpu_tpu_torch.parallel import spatial as S
 from qcnn_gpu_tpu_torch.parallel.mesh import make_mesh, mesh_on, mesh_shape_for, parse_mesh
 from qcnn_gpu_tpu_torch.testing import synth_engine_params, synth_frames
@@ -53,14 +54,30 @@ def _jax_restored(dims, qp=37):
     return np.asarray(run(_frames(dims)))
 
 
-def _outside_window():
-    """The QP37 synth table with C2_2's bound one output step up: outside
-    the saturation window (chip_smoke.py phase 7's first table)."""
-    p = synth_engine_params(37)
-    mul, shift = _normalized_table(p)
+def _moved_up(p):
+    """p's table with C2_2's bound one output step up: outside the
+    saturation window (chip_smoke.py phase 7's first table). p is the
+    port's EngineParams or the JAX package's."""
+    mul, shift = _normalized_table(EngineParams.from_arrays(p))
     blu = list(p.blu_q)
     blu[2] = int(blu[2]) + (1 << int(shift[2])) // int(mul[2]) + 1
-    return dataclasses.replace(p, blu_q=blu)
+    return dataclasses.replace(p, blu_q=type(p.blu_q)(blu))
+
+
+def _outside_window():
+    """The QP37 synth table outside the saturation window (`_moved_up`)."""
+    return _moved_up(synth_engine_params(37))
+
+
+OUTSIDE_X = (2, 48, 64)  # frames of the outside-window cases, seed 9
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_outside(dims):
+    """JAX make_sharded_forward(impl="auto") on the outside-window table:
+    on the CPU, the sharded XLA graph (spatial.py:106-109), exact."""
+    run = jax_sharded(_moved_up(jax_synth_params(37)), _jax_mesh(dims), impl="auto")
+    return np.asarray(run(synth_frames(*OUTSIDE_X, seed=9)))
 
 
 @pytest.mark.parametrize("dims", [(1, 2, 1), (1, 4, 1), (2, 2, 1), (1, 2, 2), (2, 2, 2)],
@@ -198,23 +215,74 @@ def test_an_unsplit_axis_gets_no_halo():
 
 @pytest.mark.parametrize("impl", ["kernel1", "kernel2"])
 def test_generations_1_and_2_refuse_a_mesh(impl):
-    with pytest.raises(ValueError, match="take no frame bounds.*--impl reference"):
-        S.make_sharded_forward(synth_engine_params(37), _port_mesh((1, 2, 1)), impl=impl)
+    """Generation 2 still refuses a mesh: the mesh path runs generations 3
+    and 1 only. Generation 1 refused it until it took frame bounds; now
+    `--impl kernel1` serves a table inside the window too, equal to the
+    unsharded restore."""
+    p = synth_engine_params(37)
+    mesh = _port_mesh((1, 2, 1))
+    if impl == "kernel2":
+        with pytest.raises(ValueError, match="generations 3 and 1 only.*--impl reference"):
+            S.make_sharded_forward(p, mesh, impl=impl)
+        return
+    run = S.make_sharded_forward(p, mesh, impl=impl)
+    assert run.impl == "kernel1"
+    x = torch.from_numpy(synth_frames(2, 48, 64, seed=1))
+    assert torch.equal(run(x), make_forward(p, device="cpu")(x))
 
 
 def test_auto_outside_the_window_raises_and_reference_serves_it():
-    """auto under a mesh is generation 3 or a ValueError naming --impl
-    reference (never generation 1, which takes no bounds, and never a
-    silent fallback); the reference net computes the table exactly."""
+    """auto under a mesh serves a table outside the saturation window with
+    generation 1 under each block's frame bounds, bit-equal to the JAX
+    package's sharded forward (its CPU's XLA graph), to the port's
+    unsharded literal plain version and to its reference net, at 1x2, 2x1
+    and 1x2x2, through make_sharded_forward and Engine(mesh=). A table
+    that neither generation computes raises, naming --impl reference,
+    which serves it."""
     p = _outside_window()
+    x = torch.from_numpy(synth_frames(*OUTSIDE_X, seed=9))
+    whole = literal_forward_reference(x, LiteralWeights.from_engine(p, "cpu"))
+    assert torch.equal(whole, make_forward(p, device="cpu")(x))
+    for dims in ((1, 2, 1), (2, 1, 1), (1, 2, 2)):
+        mesh = _port_mesh(dims)
+        run = S.make_sharded_forward(p, mesh, impl="auto")
+        assert run.impl == "kernel1" and _engine_name(p, mesh) == "kernel1"
+        got = run(x)
+        assert torch.equal(got, whole), dims
+        assert (got.numpy() == _jax_outside(dims)).all(), dims
+    eng = Engine(impl="auto", mesh=_port_mesh((2, 2, 1)), batch_frames=2)
+    eng.set_model(37, p)
+    assert (eng.restore(x.numpy(), 37) == whole.numpy()).all()
+    assert list(eng._programs) == [(37, "cpu", "kernel1", "2x2")]
+
+    mul = list(p.mul)
+    mul[5] = 129  # odd: nothing to normalize away; generation 1 refuses it too
+    neither = dataclasses.replace(p, mul=mul)
     mesh = _port_mesh((1, 2, 1))
-    with pytest.raises(ValueError, match="saturation window.*--impl reference"):
-        S.make_sharded_forward(p, mesh, impl="auto")
+    with pytest.raises(ValueError, match="no kernel computes this table.*--impl reference"):
+        S.make_sharded_forward(neither, mesh, impl="auto")
     with pytest.raises(ValueError, match="--impl reference"):
-        _engine_name(p, mesh)
-    x = torch.from_numpy(synth_frames(2, 48, 64, seed=9))
-    got = S.make_sharded_forward(p, mesh, impl="reference")(x)
-    assert torch.equal(got, make_forward(p, device="cpu")(x))
+        _engine_name(neither, mesh)
+    got = S.make_sharded_forward(neither, mesh, impl="reference")(x)
+    assert torch.equal(got, make_forward(neither, device="cpu")(x))
+
+
+def test_sharded_kernel1_counts_blocks_under_their_bounds(monkeypatch):
+    """Generation 1 under a mesh: one literal launch per block per call,
+    each under its block's frame bounds, as generation 3's."""
+    calls = []
+    real = S.literal_residual
+
+    def counting(*a):
+        calls.append(a[2:])
+        return real(*a)
+
+    monkeypatch.setattr(S, "literal_residual", counting)
+    run = S.make_sharded_forward(_outside_window(), _port_mesh((1, 2, 2)))
+    assert run.impl == "kernel1"
+    run(torch.from_numpy(synth_frames(*OUTSIDE_X, seed=9)))
+    assert sorted(calls) == sorted([(6, 36, 6, 44), (6, 36, 0, 38), (0, 30, 6, 44),
+                                    (0, 30, 0, 38)])
 
 
 def _engine_name(p, mesh):
@@ -225,16 +293,19 @@ def _engine_name(p, mesh):
 
 def test_kernel_failure_raises_under_a_mesh(monkeypatch):
     """A kernel that fails to build or launch raises through the sharded
-    program: no demotion to the reference net (the JAX package warns and
-    demotes, spatial.py:121-133)."""
+    program, generation 3's and generation 1's: no demotion to the
+    reference net (the JAX package warns and demotes, spatial.py:121-133)."""
 
     def broken(*a, **k):
         raise RuntimeError("nvcc not found")
 
     monkeypatch.setattr(S, "fused_forward", broken)
-    run = S.make_sharded_forward(synth_engine_params(37), _port_mesh((1, 2, 1)))
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        run(torch.from_numpy(synth_frames(2, 48, 64, seed=1)))
+    monkeypatch.setattr(S, "literal_residual", broken)
+    x = torch.from_numpy(synth_frames(2, 48, 64, seed=1))
+    for p in (synth_engine_params(37), _outside_window()):
+        run = S.make_sharded_forward(p, _port_mesh((1, 2, 1)))
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            run(x)
 
 
 def test_engine_mesh_checks():

@@ -144,8 +144,11 @@ def test_diagnostic_entry_mirrors_ops_fused():
     ops/fused.STAGE_VARIANTS; the diagnostic tile must be one of
     QVRCNN_TILES (= ops/fused.TILES), named by the defines
     `stage_defines` passes; the main entry is compiled only without them."""
-    with open(os.path.join(REPO, "qcnn_gpu_tpu_torch", "csrc", "qvrcnn_fused.cu")) as fp:
+    csrc = os.path.join(REPO, "qcnn_gpu_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "qvrcnn_fused.cu")) as fp:
         src = fp.read()
+    with open(os.path.join(csrc, "qvrcnn_split.cuh")) as fp:
+        split = fp.read()
     line = re.search(r"#define QVRCNN_STAGE_VARIANTS\(X\) (.*)", src).group(1)
     got = [(int(s), z == "true") for s, z in re.findall(r"X\((\d), (true|false)\)", line)]
     assert got == [(s, bool(d)) for s, d in FU.STAGE_VARIANTS]
@@ -153,15 +156,20 @@ def test_diagnostic_entry_mirrors_ops_fused():
     for th, tw in FU.TILES:
         assert FU.stage_defines((th, tw)) == (f"QVRCNN_DIAG_TH={th}", f"QVRCNN_DIAG_TW={tw}")
     names = {d.split("=")[0] for d in FU.stage_defines(FU.TILES[0])}
-    assert names == set(re.findall(r"Geo3<(QVRCNN_DIAG_TH), (QVRCNN_DIAG_TW)>", src)[0])
+    assert names == set(re.findall(r"Gen3<(QVRCNN_DIAG_TH), (QVRCNN_DIAG_TW), S, Z>", src)[0])
     main_entry = src.index("int qvrcnn_fused_forward(")
     diag_entry = src.index("int qvrcnn_fused_stages(")
     assert src.rindex("#ifndef QVRCNN_DIAG_TH", 0, main_entry) < main_entry
     assert src.rindex("#else", 0, diag_entry) > main_entry
-    # emit_stage's regions: S1 and S3 in buffer A, S2 in B, 4, 2, 1 positions in
-    assert "OFF = K == 1 ? 4 : (K == 2 ? 2 : 1)" in src
-    assert "K == 1 ? G::P1 : (K == 2 ? G::P2 : G::P3)" in src
-    assert "(K == 2 ? G::SM_B : G::SM_A)" in src
+    # emit_stage (the template's, which each variant instantiates): S1 and
+    # S3 in buffer A, S2 in B, 4, 2, 1 positions in
+    assert "OFF = K == 1 ? 4 : (K == 2 ? 2 : 1)" in split
+    assert "K == 1 ? Geo::P1 : (K == 2 ? Geo::P2 : Geo::P3)" in split
+    assert "(K == 2 ? Geo::OFF_B : Geo::OFF_A)" in split
+    for k in (1, 2, 3):
+        assert f"if constexpr (C::STAGES == {k})" in split
+        assert f"emit_stage<C, {k}>" in split
+    assert "!C::ZERO_A1 && i < Geo::RAW" in split
     lay = FU.layout(*FU.TILES[0])
     assert [(r - lay.th) // 2 for r in lay.rows[1:]] == [4, 2, 1]
 

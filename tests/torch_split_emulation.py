@@ -1,6 +1,6 @@
 """The split design's tile kernels, emulated in numpy int64 on the CPU:
-generation 3 (qcnn_gpu_tpu_torch/csrc/qvrcnn_fused.cu) and, through the
-template csrc/qvrcnn_split.cuh, generations 2 (qvrcnn_pair.cu) and 1
+the instances of the template qcnn_gpu_tpu_torch/csrc/qvrcnn_split.cuh,
+generations 3 (qvrcnn_fused.cu), 2 (qvrcnn_pair.cu) and 1
 (qvrcnn_literal.cu), laid out as qcnn_gpu_tpu_torch/ops/fused.py says.
 
 `emulate` runs a kernel's arithmetic as the kernel lays it out and
@@ -25,9 +25,12 @@ dropped (the warpgroup that reaches it runs on before the others) each
 fail. Every
 stored activation must fit its byte type (0..127 for the folded
 epilogue, whose kernels drop the min(., 127); 0..255 for the literal).
-Generation 3's diagnostic variants (ops/fused.STAGE_VARIANTS) are
-emulated too: `stages` k < 4 reads channel 0 of stage k's region where
-the kernel's `emit_stage` reads it, and `zero_a1` writes a zero window.
+Every design takes frame bounds (the template's `Bounds`): the window
+reads x - 128 inside them and 0 outside, and every stage stores 0
+outside them. Generation 3's diagnostic variants (ops/fused.STAGE_VARIANTS)
+are emulated too: `stages` k < 4 reads channel 0 of stage k's region
+where the template's `emit_stage` reads it, and `zero_a1` writes a zero
+window.
 Tolerance against the plain versions and the Pallas kernels: 0.
 """
 
@@ -265,14 +268,15 @@ def emulate(x, wts, design, bounds=(), grid=3, zero_tails=True, drop_barrier=Non
             stages=4, zero_a1=False):
     """The kernel's arithmetic on uint8 frames [B, H, W]: restored uint8
     frames, or the int16 residual for the literal design. `wts` is a
-    FusedWeights or LiteralWeights on the CPU; `bounds` (generation 3
-    only) the frame rectangle; `stages` and `zero_a1` (generation 3 only)
-    a diagnostic variant. The two mutations (no tail zeroing, barrier
+    FusedWeights or LiteralWeights on the CPU; `bounds` the frame
+    rectangle (row_lo, row_hi, col_lo, col_hi; default the whole frame),
+    clipped to the frame as the template's `Bounds::clipped`; `stages` and
+    `zero_a1` (generation 3 only) a diagnostic variant. The two mutations (no tail zeroing, barrier
     `drop_barrier` of every tile dropped) make the emulation raise where
     the kernel would read stale or unwritten bytes."""
     d = design
     nb, h, w = x.shape
-    lo_r, hi_r, lo_c, hi_c = FU._bounds(h, w, *(bounds or (0, None, 0, None)))
+    lo_r, hi_r, lo_c, hi_c = FU.frame_bounds(h, w, *(bounds or (0, None, 0, None)))
     bounds = (max(lo_r, 0), min(hi_r, h), max(lo_c, 0), min(hi_c, w))
     lay = FU.layout(d.th, d.tw)
     out = np.zeros(x.shape, np.int16 if d.literal else np.uint8)
