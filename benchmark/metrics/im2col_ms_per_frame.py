@@ -1,0 +1,10 @@
+"""Device ms per frame of what the library GEMM route's `conv.im2col`
+spans launched (the pad and each band's tap copy), their union; read
+where the trace attributes the compute stream's events to program spans
+(`benchmark/spans.py`)."""
+
+from benchmark import spans
+
+
+def read(ctx):
+    return spans.device_ms_per_frame(ctx, ("conv.im2col",))

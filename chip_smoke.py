@@ -127,8 +127,9 @@ nvcc each, all at once) and then:
        `make_wide_forward` (im2col + `torch._int_mm`, int32 epilogues) on
        2 seeded frames and the c32 b3 twin, bit-equal to the plain version
        on the card; (b) `tools/bench_wide` at its defaults (ms/frame and
-       int8 TOP/s against the 2.382 ms/frame bound) and one frame's time
-       by part (im2col, GEMM, epilogue); (c) `make_wide_forward_fp8`
+       int8 TOP/s against the 2.382 ms/frame bound) and a 2-frame call's
+       device time by part (im2col, GEMM, band assembly, epilogue, other:
+       by launching span); (c) `make_wide_forward_fp8`
        (`torch._scaled_mm`) against its plain version (max |diff| <= 1)
        and the float model (JAX's bounds: PSNR > 40 dB, max |diff| <= 8),
        its weight bytes and ms/frame; (d) `make_tp_wide_forward` at tp
@@ -1572,7 +1573,8 @@ def wide_path(card: str, anchor_1080p, recon_1080p, p37) -> None:
     full width (c256 b10, 832x480). (a) make_wide_forward (im2col +
     `_int_mm`) on 2 seeded frames and the small twin, bit-equal to the
     plain version on the card; (b) tools/bench_wide at its defaults, and
-    one frame's time by part (im2col, GEMM, epilogue); (c) the FP8 forward
+    a 2-frame call's device time by part (im2col, GEMM, band assembly,
+    epilogue, other); (c) the FP8 forward
     (`_scaled_mm`) against its plain version (max |diff| <= 1, as
     tests/test_torch_wide_cuda.py holds it) and the float model (JAX's
     bounds: PSNR > 40 dB, max |diff| <= 8); (d) the TP forwards on virtual
@@ -1633,12 +1635,13 @@ def wide_path(card: str, anchor_1080p, recon_1080p, p37) -> None:
     if not rec["small_twin_exact_vs_oracle"] or n_bench <= 0:
         fail(f"tools/bench_wide: {rec}, {n_bench} _int_mm launches")
     print(json.dumps(rec))
-    split = bench_wide.route_split(p, x2[:1])  # the parts of make_wide_forward's own call
+    split = bench_wide.route_split(p, x2)  # make_wide_forward's own call, by launching span
     total = sum(split.values())
     print(f"tools/bench_wide c{c} b{blocks} {h}x{w} batch {rec['batch']} (2 calls after a warm-up): "
           f"{rec['ms_per_frame']:.4f} "
           f"ms/frame, {rec['int8_tops']:.2f} int8 TOP/s; bound {bound:.4f} ms/frame "
-          f"({rec['ms_per_frame'] / bound:.3f}x), {n_bench} _int_mm launches; one frame by part: "
+          f"({rec['ms_per_frame'] / bound:.3f}x), {n_bench} _int_mm launches; a call of 2 frames "
+          "by part (device ms): "
           + ", ".join(f"{k} {v:.4f} ms ({100 * v / total:.1f}%)" for k, v in split.items())
           + f", {total:.4f} ms in all {card}")
 

@@ -70,6 +70,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from qcnn_gpu_tpu_torch import spans
 from qcnn_gpu_tpu_torch.data import yuv
 from qcnn_gpu_tpu_torch.data.model_files import (
     read_static_qfp_hwcn,
@@ -87,6 +88,7 @@ from qcnn_gpu_tpu_torch.ops.pair import pair_forward
 from qcnn_gpu_tpu_torch.ops.tuning import build_tuned, geometry_class
 from qcnn_gpu_tpu_torch.parallel.mesh import Mesh
 from qcnn_gpu_tpu_torch.parallel.spatial import make_sharded_forward, pad_batch, sharded_impl
+from qcnn_gpu_tpu_torch.spans import span
 
 IMPLS = ("auto", "kernel", "kernel1", "kernel2", "kernel3", "reference")
 TRANSPORTS = ("raw", "duplex", "auto")
@@ -285,7 +287,8 @@ class Engine:
                 self._evict_duplex(qp, frames.shape[-2:])
                 raise
         else:
-            out = np.empty_like(frames)
+            with span(spans.ENGINE_OUTPUT):
+                out = np.empty_like(frames)
             self._restore_stream_raw(frames, qp, depth, out)
             stream = {"served": "raw", "h2d_bytes": frames.nbytes, "d2h_bytes": frames.nbytes}
         if probe is not None:
@@ -396,7 +399,8 @@ class Engine:
         # (send, receive and their parts: DuplexTransport.stats)
         marks = {k: len(v) for k, v in tr.stats.items() if k.endswith("_bytes") or k[:2] == "t_"}
         steps = {k: tr.stats[k] for k in ("full_steps", "packed_steps", "dense_fetches")}
-        out = np.empty_like(frames)
+        with span(spans.ENGINE_OUTPUT):
+            out = np.empty_like(frames)
         pipeline(tr, [frames[i:i + bs] for i in range(0, cut, bs)], depth, on_output=writer(out))
         stream = {"served": "duplex"}
         for k, i0 in marks.items():

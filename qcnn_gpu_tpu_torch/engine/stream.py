@@ -21,6 +21,13 @@ port builds it from three streams and a ring of pinned host buffers
   * a fetcher thread synchronises on that event, hands the pinned batch
     to the sink (which copies it into the numpy result) and frees the slot.
 
+Each batch's steps are program spans (`qcnn_gpu_tpu_torch/spans.py`),
+recorded while a `torch.profiler` runs: on the producer `stream.send`
+(inside it `stream.stage_in`, `stream.upload`, `stream.run`,
+`stream.download`) and `stream.backpressure` (the wait on the full
+queue); on the fetcher `stream.receive` (inside it `stream.wait`,
+`stream.sink`).
+
 A tensor allocated on one stream and used on another is marked with
 `record_stream`, so the caching allocator never hands its memory to a
 later batch while a copy or kernel still reads it. Every pinned slot is
@@ -48,6 +55,9 @@ from typing import Callable, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from qcnn_gpu_tpu_torch import spans
+from qcnn_gpu_tpu_torch.spans import span
 
 
 def host_copy(dst: np.ndarray, src: np.ndarray) -> None:
@@ -149,16 +159,18 @@ class Staging:
         device tensor. Returns (tensor, event that ends the copy)."""
         nbytes = sum(a.nbytes for a in segments)
         if not self.cuda:
-            flat = [np.ascontiguousarray(a).reshape(-1).view(np.uint8) for a in segments]
-            return torch.from_numpy(np.concatenate(flat)), None  # a copy, as a device's would be
+            with span(spans.STREAM_STAGE_IN):  # a copy, as a device's would be
+                flat = [np.ascontiguousarray(a).reshape(-1).view(np.uint8) for a in segments]
+                return torch.from_numpy(np.concatenate(flat)), None
         pinned = self._pinned(self._in, s, nbytes)
         host = pinned.numpy()
-        off = 0
-        for a in segments:
-            n = a.nbytes
-            host_copy(host[off:off + n], np.ascontiguousarray(a).reshape(-1).view(np.uint8))
-            off += n
-        with torch.cuda.stream(self.h2d):
+        with span(spans.STREAM_STAGE_IN):
+            off = 0
+            for a in segments:
+                n = a.nbytes
+                host_copy(host[off:off + n], np.ascontiguousarray(a).reshape(-1).view(np.uint8))
+                off += n
+        with span(spans.STREAM_UPLOAD), torch.cuda.stream(self.h2d):
             dev = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
             dev.copy_(pinned[:nbytes], non_blocking=True)
             done = torch.cuda.Event()
@@ -181,30 +193,32 @@ class Staging:
         `after` (default: all work issued so far on the compute stream)."""
         if not self.cuda:
             return Pending(s, None, list(tensors))
-        if after is None:
-            after = torch.cuda.Event()
-            after.record(self.compute)
-        sizes = [t.numel() * t.element_size() for t in tensors]
-        offs = self.offsets(sizes)
-        pinned = self._pinned(self._out, s, offs[-1])
-        host_np = pinned.numpy()
-        self.d2h.wait_event(after)
-        views = []
-        with torch.cuda.stream(self.d2h):
-            for t, off, n in zip(tensors, offs, sizes):
-                t = t.contiguous()
-                pinned[off:off + n].copy_(t.reshape(-1).view(torch.uint8), non_blocking=True)
-                t.record_stream(self.d2h)
-                views.append(host_np[off:off + n].view(_NP[t.dtype]).reshape(t.shape))
-            done = torch.cuda.Event()
-            done.record(self.d2h)
-        return Pending(s, done, views)
+        with span(spans.STREAM_DOWNLOAD):
+            if after is None:
+                after = torch.cuda.Event()
+                after.record(self.compute)
+            sizes = [t.numel() * t.element_size() for t in tensors]
+            offs = self.offsets(sizes)
+            pinned = self._pinned(self._out, s, offs[-1])
+            host_np = pinned.numpy()
+            self.d2h.wait_event(after)
+            views = []
+            with torch.cuda.stream(self.d2h):
+                for t, off, n in zip(tensors, offs, sizes):
+                    t = t.contiguous()
+                    pinned[off:off + n].copy_(t.reshape(-1).view(torch.uint8), non_blocking=True)
+                    t.record_stream(self.d2h)
+                    views.append(host_np[off:off + n].view(_NP[t.dtype]).reshape(t.shape))
+                done = torch.cuda.Event()
+                done.record(self.d2h)
+            return Pending(s, done, views)
 
     def fetch(self, p: Pending) -> list:
         """Wait for a download; its host arrays (valid until `release`)."""
         if not self.cuda:
             return [t.numpy() for t in p.host]
-        p.event.synchronize()
+        with span(spans.STREAM_WAIT):
+            p.event.synchronize()
         return p.host
 
 
@@ -237,27 +251,30 @@ class RawTransport:
 
     def send(self, x: np.ndarray):
         st = self.staging
-        s = st.take()
-        try:
-            xd, up = st.upload(s, [x])
-            with st.computing(up):
-                out = self._run(xd.view(x.shape))
-            single = not isinstance(out, (tuple, list))
-            return st.download(s, [out] if single else list(out)), single
-        except BaseException:
-            st.release(s)
-            raise
+        with span(spans.STREAM_SEND):
+            s = st.take()
+            try:
+                xd, up = st.upload(s, [x])
+                with span(spans.STREAM_RUN), st.computing(up):
+                    out = self._run(xd.view(x.shape))
+                single = not isinstance(out, (tuple, list))
+                return st.download(s, [out] if single else list(out)), single
+            except BaseException:
+                st.release(s)
+                raise
 
     def receive(self, x: np.ndarray, item, sink: Optional[Callable] = None) -> None:
         """Wait for the batch and feed its output to `sink`: on a CUDA
         device, views of pinned memory, valid only until `sink` returns."""
         pending, single = item
-        try:
-            host = self.staging.fetch(pending)
-            if sink is not None:
-                sink(host[0] if single else tuple(host))
-        finally:
-            self.staging.release(pending.slot)
+        with span(spans.STREAM_RECEIVE):
+            try:
+                host = self.staging.fetch(pending)
+                if sink is not None:
+                    with span(spans.STREAM_SINK):
+                        sink(host[0] if single else tuple(host))
+            finally:
+                self.staging.release(pending.slot)
 
 
 def _copied(a):
@@ -310,8 +327,9 @@ def pipeline(transport, batches: Iterable[np.ndarray], depth: int = 3,
         for x in batches:
             if err:
                 break
-            q.put((x, transport.send(x)))  # blocks only when `depth` batches
-            # are queued (backpressure)
+            item = (x, transport.send(x))
+            with span(spans.STREAM_BACKPRESSURE):
+                q.put(item)  # blocks only when `depth` batches are queued
     finally:
         q.put(done)
         th.join()

@@ -17,8 +17,9 @@ engine's fixed-point contract, so the tables come from the port's
     int64 epilogues of `ops/requant.py`, on any device (JAX's numpy
     oracle, :227);
   * `make_wide_forward`: the card program (:246): `ops/int8_conv`'s
-    im2col + `_int_mm` GEMMs and int32 epilogues; on the CPU the plain
-    version;
+    im2col + `_int_mm` GEMMs and int32 epilogues (program spans
+    `wide.input`, `wide.requant`, `wide.residual`, `qcnn_gpu_tpu_torch/
+    spans.py`); on the CPU the plain version;
   * `float_forward`: the float twin, torch and differentiable, at full
     float32 (:205);
   * `quantize_wide_fp8`, `make_wide_forward_fp8`: the FP8 variant
@@ -39,9 +40,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from qcnn_gpu_tpu_torch import spans
 from qcnn_gpu_tpu_torch.models.float_model import fp32_convs
 from qcnn_gpu_tpu_torch.models.qvrcnn import conv_exact
-from qcnn_gpu_tpu_torch.ops.int8_conv import GEMM_BYTES, conv_fp8, conv_int8, gemm_operand, mark
+from qcnn_gpu_tpu_torch.ops.int8_conv import GEMM_BYTES, conv_fp8, conv_int8, gemm_operand
 from qcnn_gpu_tpu_torch.ops.requant import (
     apply_residual_u8,
     blu_requant_clamped_i32,
@@ -52,6 +54,7 @@ from qcnn_gpu_tpu_torch.ops.requant import (
 )
 from qcnn_gpu_tpu_torch.quant.params import LayerQuant
 from qcnn_gpu_tpu_torch.quant.solver import solve_last, solve_layer, stepw_from_weights
+from qcnn_gpu_tpu_torch.spans import span
 
 # live bytes per pixel and channel of a hidden layer on the card: the int8
 # input, the int32 accumulators, the epilogue's int32 temporary and the int8
@@ -286,15 +289,17 @@ def make_wide_forward(p: WideParams, *, device, route: Optional[str] = None):
         bs = [torch.as_tensor(np.asarray(b, np.int32), device=dev) for b in p.biases]
 
     def run_chunk(x_uint8):
-        v = (x_uint8[..., None].to(torch.int16) - 128).to(torch.int8)
+        with span(spans.WIDE_INPUT):
+            v = (x_uint8[..., None].to(torch.int16) - 128).to(torch.int8)
         for op, b, row in zip(ops, bs, table):
-            v = blu_requant_clamped_i32(conv_int8(v, op, b, route="gemm"), *row)
-            mark("epilogue")
+            u = conv_int8(v, op, b, route="gemm")
+            with span(spans.WIDE_REQUANT):
+                v = blu_requant_clamped_i32(u, *row)
+            del u  # freed before the next layer allocates its accumulators
         u = conv_int8(v, ops[-1], bs[-1], route="gemm")
-        res = final_residual_i32(u[..., 0], p.mul_last, p.shift_last)
-        out = apply_residual_u8(x_uint8, res)
-        mark("epilogue")
-        return out
+        with span(spans.WIDE_RESIDUAL):
+            res = final_residual_i32(u[..., 0], p.mul_last, p.shift_last)
+            return apply_residual_u8(x_uint8, res)
 
     @torch.no_grad()
     def run(x_uint8: torch.Tensor) -> torch.Tensor:

@@ -32,11 +32,12 @@ layout logic against the plain version that way. On a CUDA tensor the
 route is the GEMM; a failed GEMM raises. `conv_int8.launches` and
 `conv_fp8.launches` count the GEMM calls.
 
-`part_hook`, None unless a profiler sets it, is called with "im2col" and
-"gemm" as the route finishes each; `models/wide.make_wide_forward` calls
-`mark("epilogue")` after each layer's bias and requant, so a timer that
-records a CUDA event at each call splits the real forward by part
-(`tools/bench_wide.route_split`).
+The route's parts are program spans (`qcnn_gpu_tpu_torch/spans.py`),
+recorded while a `torch.profiler` runs: `conv.im2col` (the pad, and each
+band's tap copy), `conv.gemm`, `conv.assemble` (a band's accumulators
+copied into the layer's output, where a layer takes more than one band)
+and `conv.bias`. A trace's device time by span splits the real forward
+by part (`tools/bench_wide.route_split`).
 """
 
 from __future__ import annotations
@@ -46,17 +47,13 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from qcnn_gpu_tpu_torch import spans
 from qcnn_gpu_tpu_torch.models.qvrcnn import conv_exact
+from qcnn_gpu_tpu_torch.spans import span
 
 GEMM_BYTES = 1 << 31  # one band's im2col matrix and accumulators
 MIN_ROWS = 32  # `_int_mm` needs M > 16; a smaller band is padded to this
 WORDS = {8: torch.int64, 4: torch.int32, 2: torch.int16}  # bytes -> the im2col copy's word
-part_hook = None  # fn(part) called as each part of the route ends; timing only
-
-
-def mark(part: str) -> None:
-    if part_hook is not None:
-        part_hook(part)
 
 
 def _round_up(v: int, m: int) -> int:
@@ -133,23 +130,25 @@ def _gemm_conv(x: torch.Tensor, w: GemmOperand, mm, out_dtype, budget: int) -> t
     k = w.k
     p = k // 2
     kp, np_ = w.mat.shape
-    xp = F.pad(x.view(torch.uint8), (0, 0, p, p, p, p))
+    with span(spans.CONV_IM2COL):
+        xp = F.pad(x.view(torch.uint8), (0, 0, p, p, p, p))
     bands = _bands(n, h, wd, kp + 4 * np_, budget)
     out = None
     for fs, rs in bands:
         blk = xp[fs, rs.start:rs.stop + 2 * p]
-        cols = im2col(blk, k, kp).view(x.dtype)
-        mark("im2col")
-        acc = mm(cols, w.mat)
-        mark("gemm")
+        with span(spans.CONV_IM2COL):
+            cols = im2col(blk, k, kp).view(x.dtype)
+        with span(spans.CONV_GEMM):
+            acc = mm(cols, w.mat)
         nb, hb = blk.shape[0], rs.stop - rs.start
         acc = acc[:nb * hb * wd].view(nb, hb, wd, np_)
         if len(bands) == 1:
             out = acc
         else:
-            if out is None:
-                out = torch.empty((n, h, wd, np_), dtype=out_dtype, device=x.device)
-            out[fs, rs] = acc
+            with span(spans.CONV_ASSEMBLE):
+                if out is None:
+                    out = torch.empty((n, h, wd, np_), dtype=out_dtype, device=x.device)
+                out[fs, rs] = acc
     return out[..., :w.cout]
 
 
@@ -172,7 +171,10 @@ def conv_int8(x: torch.Tensor, w, b=None, *, route=None, budget: int = GEMM_BYTE
     if route != "gemm":
         raise ValueError(f"route {route!r}: 'gemm' or 'plain'")
     u = _gemm_conv(x, op, _int_mm, torch.int32, budget)
-    return u.add_(b) if b is not None else u
+    if b is None:
+        return u
+    with span(spans.CONV_BIAS):
+        return u.add_(b)
 
 
 conv_int8.launches = 0

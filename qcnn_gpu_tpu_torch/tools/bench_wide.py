@@ -18,10 +18,11 @@ JSON line with the JAX script's keys, unrounded ("backend" names the
 card); the card's name and power limit and the bound at the int8 dense
 peak go on a line before it.
 
-`route_split` times one frame's call of that forward by part (im2col,
-GEMM, epilogue) with the CUDA events that `ops/int8_conv.part_hook`
-records as each part ends, for the smoke run and the ROADMAP's fused
-implicit-GEMM item.
+`route_split` splits the device time of a call of that forward by part
+(im2col, GEMM, band assembly, epilogue) from a `torch.profiler` trace of
+it, by the program span that launched each kernel and copy
+(`qcnn_gpu_tpu_torch/spans.py`), for the smoke run and the ROADMAP's
+fused implicit-GEMM item.
 """
 
 from __future__ import annotations
@@ -31,12 +32,19 @@ import sys
 
 import torch
 
+from qcnn_gpu_tpu_torch import spans
 from qcnn_gpu_tpu_torch.models import wide as W
-from qcnn_gpu_tpu_torch.ops import int8_conv as C
 from qcnn_gpu_tpu_torch.testing import synth_frames
 from qcnn_gpu_tpu_torch.tools import PEAK_INT8_OPS, events_ms, smi
 
 REPS = 8
+# route_split's parts: the program spans whose device time each sums
+PARTS = {
+    "im2col": (spans.CONV_IM2COL,),
+    "gemm": (spans.CONV_GEMM,),
+    "assemble": (spans.CONV_ASSEMBLE,),
+    "epilogue": (spans.CONV_BIAS, spans.WIDE_INPUT, spans.WIDE_REQUANT, spans.WIDE_RESIDUAL),
+}
 
 
 def macs_per_pixel(channels: int, blocks: int) -> int:
@@ -49,33 +57,28 @@ def batch_for(h: int, w: int) -> int:
 
 
 def route_split(p: W.WideParams, x_uint8: torch.Tensor, reps: int = 3):
-    """ms of one call of `make_wide_forward`'s card program on x_uint8
-    [1, H, W] on a CUDA device, by part: {"im2col": pad + the tap copy,
-    "gemm": `_int_mm`, "epilogue": bias + requant (the tail's: the residual
-    and its add)}, summed over the layers, the mean of `reps` calls after a
-    warm-up. The parts end at the events that `int8_conv.part_hook` records
-    in the forward itself, so they add up to the whole call."""
+    """ms of device time of one call of `make_wide_forward`'s card program
+    on x_uint8 [N, H, W] on a CUDA device, by part: {"im2col": pad + the
+    tap copy, "gemm": `_int_mm`, "assemble": the bands' accumulators
+    copied into a layer's output (0 where each layer takes one band),
+    "epilogue": bias, the input's centring, requant and the tail's
+    residual and its add, "other": what no part's span launched}, summed
+    over the layers, the mean of `reps` calls traced by `torch.profiler`
+    after a warm-up. A kernel or copy counts in the part whose span
+    launched it (`spans.device_seconds`), so the parts add up to the
+    calls' device time."""
     run = W.make_wide_forward(p, device=x_uint8.device)
-
-    def event():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
     run(x_uint8)  # warm-up
-    calls = []
-    C.part_hook = lambda part: calls[-1].append((part, event()))
-    try:
-        for _ in range(reps):
-            calls.append([("start", event())])
-            run(x_uint8)
-    finally:
-        C.part_hook = None
     torch.cuda.synchronize()
-    out = {"im2col": 0.0, "gemm": 0.0, "epilogue": 0.0}
-    for marks in calls:
-        for (_, a), (part, b) in zip(marks, marks[1:]):
-            out[part] += a.elapsed_time(b) / reps
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            run(x_uint8)
+        torch.cuda.synchronize()
+    by_span = spans.device_seconds(prof)
+    out = {part: sum(by_span.pop(n, 0.0) for n in names) * 1e3 / reps
+           for part, names in PARTS.items()}
+    out["other"] = sum(by_span.values()) * 1e3 / reps
     return out
 
 

@@ -20,7 +20,10 @@ line:
   trace raw        torch.profiler over one pipelined restore_stream: the
                    host window, the kernel's busy share of it, the device
                    time of the copies, and the time in which a copy and the
-                   kernel overlap (from the device events' start and end)
+                   kernel overlap (from the device events' start and end);
+                   then the host ms per batch of each program span
+                   (`stream.*` on the producer and the fetcher,
+                   `engine.output`): the stream's per-batch host timeline
   duplex host      three untraced duplex streams of a static-camera
                    sequence (`static_camera`): the window against the
                    producer's and the fetcher's host seconds and their parts
@@ -47,6 +50,7 @@ import torch
 from qcnn_gpu_tpu_torch.engine.runner import Engine, read_model
 from qcnn_gpu_tpu_torch.models.topology import MACS_PER_PIXEL
 from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, fused_forward
+from qcnn_gpu_tpu_torch.spans import host_seconds, length, overlap, read_profiler, union
 from qcnn_gpu_tpu_torch.tools import PEAK_INT8_OPS, events_ms, smi
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -89,71 +93,46 @@ def static_camera(n: int, h: int, w: int, seed: int):
     return frames, anchors.astype(np.uint8)
 
 
-def _union(spans):
-    """Merge [start, end) spans; -> sorted disjoint spans."""
-    out = []
-    for s, e in sorted(spans):
-        if out and s <= out[-1][1]:
-            out[-1][1] = max(out[-1][1], e)
-        else:
-            out.append([s, e])
-    return out
-
-
-def _length(spans) -> float:
-    return sum(e - s for s, e in spans)
-
-
-def _overlap(a, b) -> float:
-    """Total length of the intersection of two disjoint sorted span lists."""
-    i = j = 0
-    total = 0.0
-    while i < len(a) and j < len(b):
-        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
-        total += max(0.0, hi - lo)
-        if a[i][1] < b[j][1]:
-            i += 1
-        else:
-            j += 1
-    return total
-
-
 def trace_stream(eng: Engine, frames: np.ndarray, qp: int, transport: str) -> dict:
-    """torch.profiler over one restore_stream (warm it first). Device time
-    in us, from the CUDA events' start and end: the port's kernels
+    """torch.profiler over one restore_stream (warm it first), every thread
+    followed (the fetcher starts inside the window). Device time in us,
+    from the raw kineto events' start and end: the port's kernels
     ("qvrcnn_*"), host->device and device->host copies, every other device
     operation ("other": torch's own kernels and memsets), the time in which
-    a copy and a port kernel run at once, and the host window."""
+    a copy and a port kernel run at once, and the host window; "spans":
+    each program span's (count, host ms per batch)."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    every_thread = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    with torch.profiler.profile(activities=acts, experimental_config=every_thread) as prof:
         t0 = time.perf_counter()
         eng.restore_stream(frames, qp, transport=transport)
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
-    spans = {"kernel": [], "h2d": [], "d2h": [], "other": []}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = e.name
+    prog, _, device = read_profiler(prof)
+    kinds = {"kernel": [], "h2d": [], "d2h": [], "other": []}
+    for name, _, s, e in device:
         kind = ("kernel" if "qvrcnn_" in name else "h2d" if "Memcpy HtoD" in name
                 else "d2h" if "Memcpy DtoH" in name else "other")
-        spans[kind].append((e.time_range.start, e.time_range.end))
-    merged = {k: _union(v) for k, v in spans.items()}
-    copies = _union(spans["h2d"] + spans["d2h"])
+        kinds[kind].append((s * 1e6, e * 1e6))
+    merged = {k: union(v) for k, v in kinds.items()}
+    batches = -(-frames.shape[0] // eng.batch_frames)
+    copies = union(kinds["h2d"] + kinds["d2h"])
     return {
         "window_us": window_us,
-        "kernel_us": _length(merged["kernel"]),
-        "kernel_launches": len(spans["kernel"]),
-        "kernel_share": _length(merged["kernel"]) / window_us,
-        "h2d_us": _length(merged["h2d"]),
-        "d2h_us": _length(merged["d2h"]),
-        "other_us": _length(merged["other"]),
-        "other_ops": len(spans["other"]),
-        "overlap_us": _overlap(merged["kernel"], copies),
+        "kernel_us": length(merged["kernel"]),
+        "kernel_launches": len(kinds["kernel"]),
+        "kernel_share": length(merged["kernel"]) / window_us,
+        "h2d_us": length(merged["h2d"]),
+        "d2h_us": length(merged["d2h"]),
+        "other_us": length(merged["other"]),
+        "other_ops": len(kinds["other"]),
+        "overlap_us": overlap(merged["kernel"], copies),
         "served": eng.last_stream.get("served"),
         "packed_steps": eng.last_stream.get("packed_steps", 0),
         "dense_fetches": eng.last_stream.get("dense_fetches", 0),
+        "spans": {name: (n, 1e3 * t / batches)
+                  for name, (n, t) in sorted(host_seconds(prog).items())},
     }
 
 
@@ -244,6 +223,8 @@ def _print_trace(label: str, tr: dict, n: int) -> None:
           f"{tr['overlap_us']:.1f} us; other device ops {tr['other_us']:.1f} us in "
           f"{tr['other_ops']} ({tr['packed_steps']} packed steps, {tr['dense_fetches']} dense "
           "fetches)")
+    print(f"trace {label} host ms per batch by span: "
+          + ", ".join(f"{name} {ms:.4f} ({n})" for name, (n, ms) in tr["spans"].items()))
 
 
 def main() -> int:

@@ -15,16 +15,17 @@ Tolerances:
     (tests/test_wide.py): PSNR above 40 dB, max |diff| at most 8."""
 
 import functools
+import weakref
 
 import numpy as np
 import pytest
 import torch
 
 from qcnn_gpu_tpu.models import wide as JW
+from qcnn_gpu_tpu_torch import spans
 from qcnn_gpu_tpu_torch.data import yuv
 from qcnn_gpu_tpu_torch.models import wide as W
 from qcnn_gpu_tpu_torch.models.qvrcnn import conv_exact
-from qcnn_gpu_tpu_torch.ops import int8_conv as C
 from qcnn_gpu_tpu_torch.ops.int8_conv import conv_fp8, conv_int8, gemm_operand
 from qcnn_gpu_tpu_torch.parallel.mesh import make_mesh
 from qcnn_gpu_tpu_torch.parallel.tensor import make_tp_wide_forward
@@ -105,18 +106,43 @@ def test_conv_int8_gemm_route_equals_conv_exact(case):
 
 
 def test_part_hook_marks_each_part_of_each_layer():
-    """The timing hook that tools/bench_wide.route_split sets sees the GEMM
-    route of make_wide_forward end im2col, GEMM and epilogue once a layer,
-    in that order, and leaves the result exact."""
+    """The parts that tools/bench_wide.route_split splits the forward by,
+    once the timing hook, are program spans (spans.py): under a profiler
+    the GEMM route of make_wide_forward records the input's centring once,
+    each layer's pad and tap copy, its GEMM and its bias once a layer (one
+    band each at this size), every hidden layer's requant and the tail's
+    residual, in that order, and leaves the result exact."""
     p = W.synth_wide_params(channels=16, blocks=2, seed=1)
     x = torch.from_numpy(synth_frames(1, 12, 16, seed=2))
-    seen = []
-    C.part_hook = seen.append
-    try:
-        got = W.make_wide_forward(p, device="cpu", route="gemm")(x)
-    finally:
-        C.part_hook = None
-    assert seen == ["im2col", "gemm", "epilogue"] * len(p.weights)
+    run = W.make_wide_forward(p, device="cpu", route="gemm")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = run(x)
+    seen = [name for name, _, _, _ in sorted(spans.read_profiler(prof)[0], key=lambda sp: sp[2])]
+    layer = [spans.CONV_IM2COL, spans.CONV_IM2COL, spans.CONV_GEMM, spans.CONV_BIAS]
+    n = len(p.weights)
+    assert seen == ([spans.WIDE_INPUT] + (layer + [spans.WIDE_REQUANT]) * (n - 1) + layer
+                    + [spans.WIDE_RESIDUAL])
+    assert torch.equal(got, W.forward_wide(x, p))
+
+
+def test_gemm_forward_frees_each_layers_accumulators(monkeypatch):
+    """When a layer's convolution starts, no earlier layer's int32
+    accumulators are alive: at 832x480 and 256 channels each is 409 MB a
+    frame, and one kept a layer longer raises the card's peak by that."""
+    p = W.synth_wide_params(channels=16, blocks=3, seed=1)
+    x = torch.from_numpy(synth_frames(2, 12, 16, seed=2))
+    outs, alive = [], []
+    conv = W.conv_int8
+
+    def tracked(*a, **k):
+        alive.append(sum(r() is not None for r in outs))
+        u = conv(*a, **k)
+        outs.append(weakref.ref(u))
+        return u
+
+    monkeypatch.setattr(W, "conv_int8", tracked)
+    got = W.make_wide_forward(p, device="cpu", route="gemm")(x)
+    assert len(alive) == len(p.weights) and alive == [0] * len(alive)
     assert torch.equal(got, W.forward_wide(x, p))
 
 
