@@ -1572,9 +1572,11 @@ def wide_path(card: str, anchor_1080p, recon_1080p, p37) -> None:
     """Phase 16: the wide CNN family and tensor parallelism on cuda:0, at
     full width (c256 b10, 832x480). (a) make_wide_forward (im2col +
     `_int_mm`) on 2 seeded frames and the small twin, bit-equal to the
-    plain version on the card; (b) tools/bench_wide at its defaults, and
-    a 2-frame call's device time by part (im2col, GEMM, band assembly,
-    epilogue, other); (c) the FP8 forward
+    plain version on the card, with the hidden layers' requant epilogue
+    kernel launched once a hidden layer and chunk; (b) tools/bench_wide at
+    its defaults, a 2-frame call's device time by part (im2col, GEMM, band
+    assembly, epilogue, other), and the epilogue kernel alone on one
+    frame's accumulators against its bound and its plain version; (c) the FP8 forward
     (`_scaled_mm`) against its plain version (max |diff| <= 1, as
     tests/test_torch_wide_cuda.py holds it) and the float model (JAX's
     bounds: PSNR > 40 dB, max |diff| <= 8); (d) the TP forwards on virtual
@@ -1590,7 +1592,9 @@ def wide_path(card: str, anchor_1080p, recon_1080p, p37) -> None:
     from qcnn_gpu_tpu_torch.data.yuv import psnr
     from qcnn_gpu_tpu_torch.models import wide as WD
     from qcnn_gpu_tpu_torch.ops.fused import FusedWeights, fused_forward
+    from qcnn_gpu_tpu_torch.ops import build
     from qcnn_gpu_tpu_torch.ops.int8_conv import conv_fp8, conv_int8
+    from qcnn_gpu_tpu_torch.ops.requant import KERNEL as EPILOGUE, bias_blu_requant_i8
     from qcnn_gpu_tpu_torch.parallel.mesh import make_mesh
     from qcnn_gpu_tpu_torch.parallel.tensor import make_tp_int8_forward, make_tp_wide_forward
     from qcnn_gpu_tpu_torch.tools import PEAK_INT8_OPS, bench_wide, events_ms
@@ -1608,10 +1612,12 @@ def wide_path(card: str, anchor_1080p, recon_1080p, p37) -> None:
     p = WD.synth_wide_params(c, blocks, seed=7)
     x2 = torch.from_numpy(frames(2, h, w, seed=16)).to(dev)
     run = WD.make_wide_forward(p, device=dev)
-    conv_int8.launches = 0
+    conv_int8.launches = bias_blu_requant_i8.launches = 0
     got = run(x2)
     torch.cuda.synchronize()
-    n_int = conv_int8.launches
+    n_int, n_epi = conv_int8.launches, bias_blu_requant_i8.launches
+    chunks = -(-len(x2) // WD.frames_per_chunk(h, w, c))
+    want_epi = (len(p.weights) - 1) * chunks
     t0 = time.perf_counter()
     want = WD.forward_wide(x2, p)
     torch.cuda.synchronize()
@@ -1620,12 +1626,21 @@ def wide_path(card: str, anchor_1080p, recon_1080p, p37) -> None:
     xs = torch.from_numpy(frames(1, 48, 64, seed=6)).to(dev)
     err_small = max_err(WD.make_wide_forward(p_small, device=dev)(xs), WD.forward_wide(xs, p_small))
     err = max_err(got, want)
-    if err or err_small or n_int <= 0 or got.shape != x2.shape:
+    if err or err_small or n_int <= 0 or got.shape != x2.shape or n_epi != want_epi:
         fail(f"wide INT8: max_abs_err {err} (c{c} b{blocks} 2x{h}x{w}), {err_small} (c32 b3), "
-             f"{n_int} _int_mm launches")
-    print(f"wide c{c} b{blocks} INT8, 2x{h}x{w} on cuda (impl {run.impl}): _int_mm launches={n_int}; "
-          f"max_abs_err=0 against the plain version on the card (float64 convs, {plain_s:.2f} s); "
-          f"small twin c32 b3 1x48x64 max_abs_err=0; {macs / 1e12:.6f} TMAC a frame {card}")
+             f"{n_int} _int_mm launches, {n_epi} requant epilogue launches (want {want_epi})")
+    print(f"wide c{c} b{blocks} INT8, 2x{h}x{w} on cuda (impl {run.impl}): _int_mm launches={n_int}, "
+          f"requant epilogue launches={n_epi} ({len(p.weights) - 1} hidden layers x {chunks} "
+          f"chunk(s)); max_abs_err=0 against the plain version on the card (float64 convs, "
+          f"{plain_s:.2f} s); small twin c32 b3 1x48x64 max_abs_err=0; {macs / 1e12:.6f} TMAC a "
+          f"frame {card}")
+    log = build.build_info[EPILOGUE]["log"]  # "already built: ..." where a run before built it
+    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
+    if any(int(n) for n in spills):
+        fail(f"ptxas reports spills for {EPILOGUE}: {spills}")
+    regs = re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) registers", log, re.S)
+    print(f"{EPILOGUE}: " + ("; ".join(f"{name} {n} registers" for name, n in regs)
+                             or log.strip()) + ", 0 bytes spilled")
 
     # (b) tools/bench_wide at its defaults (2 timed calls of its 150 frames,
     # not 8: the smoke's time), and one frame's split
@@ -1643,7 +1658,13 @@ def wide_path(card: str, anchor_1080p, recon_1080p, p37) -> None:
           f"({rec['ms_per_frame'] / bound:.3f}x), {n_bench} _int_mm launches; a call of 2 frames "
           "by part (device ms): "
           + ", ".join(f"{k} {v:.4f} ms ({100 * v / total:.1f}%)" for k, v in split.items())
-          + f", {total:.4f} ms in all {card}")
+          + f", {total:.4f} ms in all; epilogue {split['epilogue'] / len(x2):.4f} ms/frame {card}")
+    epi = bench_wide.epilogue_ms(h, w, c)
+    print(f"requant epilogue kernel ({EPILOGUE}.cu) alone on one frame's accumulators "
+          f"{'x'.join(map(str, epi['shape']))}: {epi['ms']:.4f} ms a layer, bound "
+          f"{epi['bound_ms']:.4f} ms ({epi['ms'] / epi['bound_ms']:.3f}x; 5 bytes a value at 3.35 "
+          f"TB/s), plain version {epi['plain_ms']:.4f} ms ({epi['plain_ms'] / epi['ms']:.2f}x the "
+          f"kernel), CUDA events in turns {card}")
 
     # (c) the FP8 net: synth_wide_params' float weights
     ws, bs = WD.synth_float_wide(c, blocks, seed=7)
@@ -1718,6 +1739,12 @@ def wide_path(card: str, anchor_1080p, recon_1080p, p37) -> None:
          "counterpart": "qcnn_gpu_tpu/models/wide.py:246 (XLA int8 conv)",
          "launches_per_call_2_frames": n_int, "ms_per_frame": rec["ms_per_frame"],
          "bound_ms_per_frame": bound, "split_ms_one_frame": split},
+        {"name": "wide_requant_epilogue", "route": "cuda",
+         "source": f"qcnn_gpu_tpu_torch/csrc/{EPILOGUE}.cu",
+         "counterpart": "none: XLA elementwise ops after qcnn_gpu_tpu/models/wide.py:246's convs",
+         "launches_per_call_2_frames": n_epi, "ms_per_layer_one_frame": epi["ms"],
+         "bound_ms": epi["bound_ms"], "plain_ms": epi["plain_ms"],
+         "split_epilogue_ms_per_frame": split["epilogue"] / len(x2)},
         {"name": "wide_fp8", "route": "torch._scaled_mm", "source": "qcnn_gpu_tpu_torch/ops/int8_conv.py",
          "counterpart": "qcnn_gpu_tpu/models/wide.py:299 (XLA bf16 conv)",
          "launches_per_call_2_frames": n8, "ms_per_frame": t8["fp8"] / 2, "bound_ms_per_frame": bound},

@@ -17,7 +17,10 @@ engine's fixed-point contract, so the tables come from the port's
     int64 epilogues of `ops/requant.py`, on any device (JAX's numpy
     oracle, :227);
   * `make_wide_forward`: the card program (:246): `ops/int8_conv`'s
-    im2col + `_int_mm` GEMMs and int32 epilogues (program spans
+    im2col + `_int_mm` GEMMs, each hidden layer's bias and BLU requant in
+    one pass from its int32 accumulators to int8
+    (`ops/requant.bias_blu_requant_i8`, the CUDA kernel
+    `csrc/requant_epilogue.cu`), the tail's int32 epilogue (program spans
     `wide.input`, `wide.requant`, `wide.residual`, `qcnn_gpu_tpu_torch/
     spans.py`); on the CPU the plain version;
   * `float_forward`: the float twin, torch and differentiable, at full
@@ -46,7 +49,7 @@ from qcnn_gpu_tpu_torch.models.qvrcnn import conv_exact
 from qcnn_gpu_tpu_torch.ops.int8_conv import GEMM_BYTES, conv_fp8, conv_int8, gemm_operand
 from qcnn_gpu_tpu_torch.ops.requant import (
     apply_residual_u8,
-    blu_requant_clamped_i32,
+    bias_blu_requant_i8,
     blu_requant_i32,
     check_blu_requant_i32_safe,
     final_residual_i32,
@@ -57,8 +60,11 @@ from qcnn_gpu_tpu_torch.quant.solver import solve_last, solve_layer, stepw_from_
 from qcnn_gpu_tpu_torch.spans import span
 
 # live bytes per pixel and channel of a hidden layer on the card: the int8
-# input, the int32 accumulators, the epilogue's int32 temporary and the int8
-# output; a forward runs as many frames at once as keep them under GEMM_BYTES
+# input, the int32 accumulators and the int8 output take 6; the 4 of an
+# int32 temporary, which the one-pass epilogue no longer makes, are kept as
+# headroom on purpose, so that a chunk's frames and each GEMM's work stay
+# as they were. A forward runs as many frames at once as keep them under
+# GEMM_BYTES.
 LIVE_BYTES = 10
 
 
@@ -274,7 +280,8 @@ def make_wide_forward(p: WideParams, *, device, route: Optional[str] = None):
     """fn(uint8 tensor [N, H, W] on `device`) -> restored uint8 tensor,
     bit-equal to `forward_wide`. route "gemm" (the default on CUDA): the
     card program, NHWC int8 activations through `ops/int8_conv.conv_int8`
-    (im2col + `_int_mm`) and int32 epilogues, frames in chunks
+    (im2col + `_int_mm`), each hidden layer's bias and requant in one
+    `bias_blu_requant_i8` launch, the tail's int32 epilogue, frames in chunks
     (`frames_per_chunk`); route "plain" (the default on the CPU):
     `forward_wide`. Raises ValueError for a table the int32 epilogue
     cannot hold."""
@@ -292,9 +299,9 @@ def make_wide_forward(p: WideParams, *, device, route: Optional[str] = None):
         with span(spans.WIDE_INPUT):
             v = (x_uint8[..., None].to(torch.int16) - 128).to(torch.int8)
         for op, b, row in zip(ops, bs, table):
-            u = conv_int8(v, op, b, route="gemm")
+            u = conv_int8(v, op, None, route="gemm")
             with span(spans.WIDE_REQUANT):
-                v = blu_requant_clamped_i32(u, *row)
+                v = bias_blu_requant_i8(u, b, *row)
             del u  # freed before the next layer allocates its accumulators
         u = conv_int8(v, ops[-1], bs[-1], route="gemm")
         with span(spans.WIDE_RESIDUAL):

@@ -11,6 +11,11 @@ never wrap; each function returns the dtype of its accumulator input.
 against the accumulator (per-channel tables: a [C] vector for
 channels-last, [C, 1, 1] for NCHW).
 
+`bias_blu_requant_i8` is a hidden layer's bias add and BLU requant on the
+card in one pass, the CUDA kernel `csrc/requant_epilogue.cu` (no Pallas
+counterpart: the JAX package runs this epilogue as XLA elementwise ops);
+`blu_requant_clamped_i32` of the biased accumulators is its plain version.
+
 Two DIFFERENT rounding-bias placements, per the reference (do not unify):
   * BLU layers: bias PRE-multiply, integer-divided by mul (mat.cu:262-303)
   * final residual: bias POST-multiply, arithmetic (floor) shift
@@ -19,7 +24,11 @@ Two DIFFERENT rounding-bias placements, per the reference (do not unify):
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from qcnn_gpu_tpu_torch.ops import build
 
 THRESHOLD = 127
 
@@ -116,3 +125,98 @@ def blu_requant_clamped_i32(u: torch.Tensor, blu_q, mul, shift) -> torch.Tensor:
         mid = u.clamp(0, int(blu_q))
     mid.add_(bias).mul_(mul).bitwise_right_shift_(shift)
     return mid.masked_fill_(u > blu_q, THRESHOLD).to(torch.int8)
+
+
+# ---- the card's epilogue: csrc/requant_epilogue.cu ------------------------
+
+KERNEL = "requant_epilogue"
+THREADS = 256  # the kernel's block (csrc/requant_epilogue.cu)
+VECTOR = 16  # channels a thread of its vector path owns
+_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+)
+
+
+def row_stride(u: torch.Tensor) -> int:
+    """u's row stride in elements, u seen as an [M, C] matrix (C =
+    u.shape[-1]) whose channels are contiguous and whose rows lie ld >= C
+    apart: a contiguous tensor (ld = C) or a `[..., :C]` view of a wider
+    one. Raises ValueError for any other layout."""
+    c = u.shape[-1]
+    if c > 1 and u.stride(-1) != 1:
+        raise ValueError(f"channels must be contiguous, got strides {u.stride()}")
+    ld = nxt = None
+    for size, stride in zip(reversed(u.shape[:-1]), reversed(u.stride()[:-1])):
+        if size == 1:
+            continue
+        if ld is None:
+            if stride < c:
+                raise ValueError(f"rows {stride} apart overlap {c} channels")
+            ld = stride
+        elif stride != nxt:
+            raise ValueError(f"not an [M, C] matrix of rows: shape {tuple(u.shape)}, "
+                             f"strides {u.stride()}")
+        nxt = stride * size
+    return c if ld is None else ld
+
+
+def vector_path(c: int, ld: int, u_ptr: int, out_ptr: int) -> bool:
+    """Whether the kernel takes its vector path (16 channels a thread,
+    16-byte loads and stores) for C = c, row stride ld and these addresses."""
+    return (c % VECTOR == 0 and c // VECTOR <= THREADS and ld % 4 == 0
+            and u_ptr % 16 == 0 and out_ptr % 16 == 0)
+
+
+def bias_blu_requant_i8(u: torch.Tensor, b: torch.Tensor, blu_q, mul, shift) -> torch.Tensor:
+    """`blu_requant_clamped_i32(u + b, blu_q, mul, shift)` in one pass:
+    int32 accumulators u [..., C] (channels contiguous, rows any ld >= C
+    apart: `row_stride`), an int32 bias b [C], and the rows as Python ints
+    (one per layer) or [C] int32 tensors on u's device (one per channel)
+    -> contiguous int8 [..., C].
+
+    A CUDA tensor goes through the kernel `csrc/requant_epilogue.cu` (one
+    launch on the current stream, counted in `bias_blu_requant_i8.launches`)
+    or raises; it allocates only the output. A CPU tensor takes the plain
+    version. Raises TypeError for a dtype, ValueError for a shape or a
+    device the kernel does not take."""
+    if u.dtype != torch.int32 or b.dtype != torch.int32:
+        raise TypeError(f"int32 accumulators and bias, got {u.dtype}, {b.dtype}")
+    if u.dim() == 0:
+        raise ValueError("u needs a channel axis")
+    c = u.shape[-1]
+    if b.shape != (c,) or b.device != u.device or not b.is_contiguous():
+        raise ValueError(f"bias {tuple(b.shape)} on {b.device} for {c} channels on {u.device}, "
+                         "contiguous")
+    rows = (blu_q, mul, shift)
+    per_channel = [isinstance(r, torch.Tensor) for r in rows]
+    if any(per_channel):
+        if not all(per_channel) or any(
+                r.dtype != torch.int32 or r.shape != (c,) or r.device != u.device
+                or not r.is_contiguous() for r in rows):
+            raise ValueError(f"per-channel rows are three contiguous int32 [{c}] tensors on "
+                             f"{u.device}")
+    ld = row_stride(u)
+    if u.device.type == "cpu":
+        return blu_requant_clamped_i32(u + b, blu_q, mul, shift)
+    if u.device.type != "cuda":
+        raise ValueError(f"no kernel for device {u.device}")
+    out = torch.empty(u.shape, dtype=torch.int8, device=u.device)
+    if u.numel() == 0:
+        return out
+    if any(per_channel):
+        vecs, scalars = [r.data_ptr() for r in rows], (0, 1, 1)
+    else:
+        vecs, scalars = [None] * 3, tuple(int(r) for r in rows)
+    vec = vector_path(c, ld, u.data_ptr(), out.data_ptr())
+    fn = build.function(KERNEL, "requant_epilogue", _ARGTYPES)
+    with torch.cuda.device(u.device):
+        err = fn(u.data_ptr(), ld, out.data_ptr(), u.numel() // c, c, b.data_ptr(), *vecs,
+                 *scalars, int(vec), build.stream_of(u))
+    build.check(KERNEL, err)
+    bias_blu_requant_i8.launches += 1
+    return out
+
+
+bias_blu_requant_i8.launches = 0

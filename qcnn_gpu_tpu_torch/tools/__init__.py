@@ -10,6 +10,7 @@ import subprocess
 from qcnn_gpu_tpu_torch.engine.mfu import PEAK_BF16_FLOPS, PEAK_INT8_OPS  # noqa: F401 (one constant)
 
 PEAK_FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, data sheet
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s, data sheet
 
 
 def smi(fields: str = "name,power.limit") -> str:

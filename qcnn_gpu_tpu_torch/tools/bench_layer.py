@@ -32,10 +32,9 @@ import torch
 from qcnn_gpu_tpu_torch.models.topology import QVRCNN_LAYERS
 from qcnn_gpu_tpu_torch.ops.int8_conv import conv_int8, gemm_operand
 from qcnn_gpu_tpu_torch.testing import synth_engine_params
-from qcnn_gpu_tpu_torch.tools import PEAK_INT8_OPS, smi
+from qcnn_gpu_tpu_torch.tools import PEAK_BYTES, PEAK_INT8_OPS, smi
 
 LAYER_NAMES = [layer.name for layer in QVRCNN_LAYERS]
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 
 def layer_inputs(idx: int, batch: int, h: int, w: int, device) -> tuple:

@@ -22,7 +22,9 @@ peak go on a line before it.
 (im2col, GEMM, band assembly, epilogue) from a `torch.profiler` trace of
 it, by the program span that launched each kernel and copy
 (`qcnn_gpu_tpu_torch/spans.py`), for the smoke run and the ROADMAP's
-fused implicit-GEMM item.
+fused implicit-GEMM item. `epilogue_ms` times a hidden layer's one-pass
+bias and requant kernel (`ops/requant.bias_blu_requant_i8`) alone at a
+frame's shape, beside its bound and its plain version.
 """
 
 from __future__ import annotations
@@ -34,8 +36,9 @@ import torch
 
 from qcnn_gpu_tpu_torch import spans
 from qcnn_gpu_tpu_torch.models import wide as W
+from qcnn_gpu_tpu_torch.ops.requant import bias_blu_requant_i8, blu_requant_clamped_i32
 from qcnn_gpu_tpu_torch.testing import synth_frames
-from qcnn_gpu_tpu_torch.tools import PEAK_INT8_OPS, events_ms, smi
+from qcnn_gpu_tpu_torch.tools import PEAK_BYTES, PEAK_INT8_OPS, events_ms, smi
 
 REPS = 8
 # route_split's parts: the program spans whose device time each sums
@@ -80,6 +83,33 @@ def route_split(p: W.WideParams, x_uint8: torch.Tensor, reps: int = 3):
            for part, names in PARTS.items()}
     out["other"] = sum(by_span.values()) * 1e3 / reps
     return out
+
+
+def epilogue_ms(h: int = 480, w: int = 832, channels: int = 256, reps: int = 20) -> dict:
+    """One hidden layer's bias and requant on one frame's int32
+    accumulators [1, h, w, channels] on the card (seeded values around a
+    solved layer's [0, blu_q], that layer's bias and row): CUDA-event ms a
+    call of the kernel and of its plain version (`blu_requant_clamped_i32`
+    of u + b), in turns (kernel, plain, plain, kernel) after a warm-up,
+    each the mean of `reps` calls, and the kernel's bound, its bytes (4 in
+    and 1 out a value) at the card's memory rate. Raises unless both give
+    the same bytes."""
+    dev = torch.device("cuda")
+    p = W.synth_wide_params(channels=channels, blocks=1, seed=7)
+    row = W.int32_table(p)[1]
+    b = torch.as_tensor(p.biases[1], device=dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    u = torch.randint(-row[0] // 2, 2 * row[0], (1, h, w, channels), dtype=torch.int32,
+                      device=dev, generator=g)
+    fns = {"kernel": lambda: bias_blu_requant_i8(u, b, *row),
+           "plain": lambda: blu_requant_clamped_i32(u + b, *row)}
+    if not torch.equal(fns["kernel"](), fns["plain"]()):
+        raise RuntimeError("the requant epilogue kernel differs from its plain version")
+    got = {"kernel": [], "plain": []}
+    for name in ("kernel", "plain", "plain", "kernel"):
+        got[name].append(events_ms(fns[name], reps))
+    return {"ms": sum(got["kernel"]) / 2, "plain_ms": sum(got["plain"]) / 2,
+            "bound_ms": u.numel() * 5 / PEAK_BYTES * 1e3, "shape": list(u.shape)}
 
 
 def bench(channels: int = 256, blocks: int = 10, h: int = 480, w: int = 832,

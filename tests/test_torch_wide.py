@@ -109,19 +109,19 @@ def test_part_hook_marks_each_part_of_each_layer():
     """The parts that tools/bench_wide.route_split splits the forward by,
     once the timing hook, are program spans (spans.py): under a profiler
     the GEMM route of make_wide_forward records the input's centring once,
-    each layer's pad and tap copy, its GEMM and its bias once a layer (one
-    band each at this size), every hidden layer's requant and the tail's
-    residual, in that order, and leaves the result exact."""
+    each layer's pad and tap copy and its GEMM (one band each at this
+    size), then every hidden layer's bias and requant in one span, and the
+    tail's bias and residual, in that order, and leaves the result exact."""
     p = W.synth_wide_params(channels=16, blocks=2, seed=1)
     x = torch.from_numpy(synth_frames(1, 12, 16, seed=2))
     run = W.make_wide_forward(p, device="cpu", route="gemm")
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         got = run(x)
     seen = [name for name, _, _, _ in sorted(spans.read_profiler(prof)[0], key=lambda sp: sp[2])]
-    layer = [spans.CONV_IM2COL, spans.CONV_IM2COL, spans.CONV_GEMM, spans.CONV_BIAS]
+    layer = [spans.CONV_IM2COL, spans.CONV_IM2COL, spans.CONV_GEMM]
     n = len(p.weights)
     assert seen == ([spans.WIDE_INPUT] + (layer + [spans.WIDE_REQUANT]) * (n - 1) + layer
-                    + [spans.WIDE_RESIDUAL])
+                    + [spans.CONV_BIAS, spans.WIDE_RESIDUAL])
     assert torch.equal(got, W.forward_wide(x, p))
 
 

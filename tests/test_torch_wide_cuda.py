@@ -1,6 +1,7 @@
 """The wide CNN family, its GEMM route, tensor parallelism and sharded
 training on a CUDA GPU: `_int_mm` and `_scaled_mm` at the shapes the
-routes give them, against the plain versions on the same card. Run on the
+routes give them, and the hidden layers' one-pass epilogue (the kernel
+`csrc/requant_epilogue.cu`), against the plain versions on the same card. Run on the
 card with `python -m pytest --noconftest -m cuda tests/test_torch_wide_cuda.py`;
 without a GPU the tests skip. Imports no JAX module.
 
@@ -21,6 +22,7 @@ from qcnn_gpu_tpu_torch.data.yuv import psnr
 from qcnn_gpu_tpu_torch.models import float_model as FM
 from qcnn_gpu_tpu_torch.models import wide as W
 from qcnn_gpu_tpu_torch.models.qvrcnn import conv_exact, make_forward
+from qcnn_gpu_tpu_torch.ops import requant as R
 from qcnn_gpu_tpu_torch.ops.int8_conv import conv_int8, gemm_operand
 from qcnn_gpu_tpu_torch.parallel.mesh import make_mesh
 from qcnn_gpu_tpu_torch.parallel.tensor import make_tp_int8_forward, make_tp_wide_forward
@@ -31,6 +33,19 @@ from qcnn_gpu_tpu_torch.train.trainer import make_grad_fn
 # a budget that bands rows
 CASES = [(2, 5, 7, 1, 16, 3, 1 << 30), (1, 9, 11, 3, 1, 5, 1 << 30), (3, 6, 8, 16, 8, 3, 2000),
          (1, 3, 4, 2, 5, 3, 1 << 30), (2, 40, 52, 64, 48, 5, 1 << 22), (1, 33, 47, 48, 6, 3, 1 << 30)]
+
+
+# the requant epilogue: (C, ld, M, column offset, vector path): the cell's
+# width and QVRCNN's 48 on the vector path, 20 and 3 on the element path,
+# padded-N strides, a misaligned view of a 16-channel matrix, and M no
+# multiple of a block's rows (16 at C = 256, 85 at 48)
+EPILOGUE_CASES = [(256, 256, 4099, 0, True), (48, 48, 1001, 0, True), (256, 264, 333, 0, True),
+                  (48, 64, 256, 0, True), (20, 24, 777, 0, False), (3, 8, 301, 0, False),
+                  (16, 32, 500, 1, False)]
+# (blu_q, mul, shift): a solved wide layer's row and one at the int32
+# envelope's edge ((blu_q + rb) * mul = 2,147,483,640)
+EPILOGUE_TABLES = [W.int32_table(W.synth_wide_params(channels=16, blocks=2, seed=1))[1],
+                   (130568, 16383, 24)]
 
 
 @pytest.fixture
@@ -96,3 +111,59 @@ def test_sharded_gradients_on_the_card(dev):
     assert float(loss) == pytest.approx(float(loss1), rel=1e-5)
     for k in FM.PARAM_NAMES:
         assert float((g[k] - g1[k]).abs().max()) <= 1e-5 * float(g1[k].abs().max()), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_channel", [False, True], ids=["layer", "channel"])
+@pytest.mark.parametrize("case", EPILOGUE_CASES, ids=lambda c: "x".join(map(str, c[:4])))
+def test_requant_epilogue_kernel_equals_its_plain_version(dev, case, per_channel):
+    """Bit-equal to `blu_requant_clamped_i32(u + b, ...)` on the card and to
+    the int64 `blu_requant_i32`, with v = u + b at -1, 0, blu_q, blu_q + 1
+    and near both int32 ends in the first rows, seeded values elsewhere."""
+    c, ld, m, off, vec = case
+    g = torch.Generator().manual_seed(c * 7 + ld + m)
+    if per_channel:
+        pick = [EPILOGUE_TABLES[i % 2] for i in range(c)]
+        rows = tuple(torch.tensor([r[k] for r in pick], dtype=torch.int32) for k in range(3))
+        q = rows[0].to(torch.int64)
+    else:
+        rows = EPILOGUE_TABLES[(c + m) % 2]
+        q = torch.full((c,), rows[0], dtype=torch.int64)
+    b = torch.randint(-(1 << 20), 1 << 20, (c,), dtype=torch.int32, generator=g)
+    hi = int(q.max())
+    v = torch.randint(-hi // 4, hi + hi // 4 + 2, (m, c), dtype=torch.int64, generator=g)
+    v[0], v[1], v[2], v[3] = -1, 0, q, q + 1
+    v[4], v[5] = (1 << 31) - 1 - (1 << 20), -(1 << 31) + (1 << 20)
+    full = torch.randint(-9, 9, (m, ld + off), dtype=torch.int32, generator=g)
+    full[:, off:off + c] = (v - b.to(torch.int64)).to(torch.int32)
+    u = full.to(dev)[:, off:off + c]
+    bd = b.to(dev)
+    rows_dev = tuple(r.to(dev) for r in rows) if per_channel else rows
+    out_probe = torch.empty((m, c), dtype=torch.int8, device=dev)
+    assert R.vector_path(c, R.row_stride(u), u.data_ptr(), out_probe.data_ptr()) is vec
+    R.bias_blu_requant_i8.launches = 0
+    got = R.bias_blu_requant_i8(u, bd, *rows_dev)
+    torch.cuda.synchronize()
+    assert R.bias_blu_requant_i8.launches == 1
+    assert got.dtype == torch.int8 and got.shape == (m, c) and got.is_contiguous()
+    assert torch.equal(got, R.blu_requant_clamped_i32(u + bd, *rows_dev))
+    assert torch.equal(got.to(torch.int32), R.blu_requant_i32(u + bd, *rows_dev))
+    batched = R.bias_blu_requant_i8(u.unflatten(0, (1, m)), bd, *rows_dev)
+    assert torch.equal(batched[0], got)
+
+
+@pytest.mark.cuda
+def test_wide_forward_launches_the_epilogue_once_a_hidden_layer_and_chunk(dev, monkeypatch):
+    """c32 b3 on 3 frames in chunks of 2: the kernel runs (hidden layers)
+    x (chunks) times, `_int_mm` (layers) x (chunks) times (one band each),
+    and the result equals the plain version."""
+    p = W.synth_wide_params(channels=32, blocks=3, seed=5)
+    x = torch.from_numpy(synth_frames(3, 40, 48, seed=6)).to(dev)
+    monkeypatch.setattr(W, "frames_per_chunk", lambda *a, **k: 2)
+    run = W.make_wide_forward(p, device=dev)
+    conv_int8.launches = R.bias_blu_requant_i8.launches = 0
+    got = run(x)
+    torch.cuda.synchronize()
+    assert R.bias_blu_requant_i8.launches == (len(p.weights) - 1) * 2
+    assert conv_int8.launches == len(p.weights) * 2
+    assert torch.equal(got, W.forward_wide(x, p))
